@@ -1,0 +1,199 @@
+"""Drive the PyTorch port's stereo-VO main path once on one CUDA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each prints its numbers on its own line; any failure exits
+non-zero before the result line):
+
+1. device  — a CUDA card must be present (there is no CPU fallback); the
+   card's name and power limit as nvidia-smi reports them;
+2. build   — the block-matching kernel is compiled from the checkout's
+   sources (scavislam_tpu_torch/csrc/stereo_bm.cu -> build/kernels/);
+3. kernel  — the CUDA kernel against its plain PyTorch version on one
+   rendered 512x384 pair at 64 disparities: valid-mask agreement, |Δ| on
+   pixels valid in both (both must hold on >= 99.9% of pixels, |Δ| <= 1e-3
+   px), and the median time of each over 25 runs (CUDA events);
+4. slice   — StereoFrontend with Config() defaults (512x384, stereo method
+   2) on the wander-in-closed-box workload at step 0.06, 80 frames: frames/s,
+   keyframes, ATE against ground truth and the kernel's launch count, which
+   must equal the frames stepped; every frame must track, >= 2 keyframes,
+   ATE < 0.05 m.
+
+The last two lines are the per-kernel JSON record and the result line.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROUTE_SOURCE = "scavislam_tpu_torch/csrc/stereo_bm.cu"
+REPLACES = "scavislam_tpu/ops/stereo_pallas.py:70"  # _bm_kernel
+N_FRAMES = 80
+TIMING_RUNS = 25
+AGREE_MIN = 0.999
+DISP_TOL = 1e-3
+ATE_MAX = 0.05
+
+
+def _fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def _cuda_ms(fn, runs):
+    """Median milliseconds of `fn()` over `runs` runs, CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _ate(est, gt):
+    errs = []
+    for Te, Tg in zip(est, gt):
+        Rg = Tg.R.numpy().astype(np.float64)
+        tg = Tg.t.numpy().astype(np.float64)
+        errs.append(Te.R @ (-Rg.T @ tg) + Te.t)  # translation of Te @ Tg^-1
+    errs = np.stack(errs)
+    return float(np.sqrt((errs ** 2).sum(axis=1).mean()))
+
+
+def main():
+    # -- 1. device
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this check needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    card_line = smi[0].strip()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"device: {kind} x{count}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    from scavislam_tpu_torch.core.camera import StereoCamera
+    from scavislam_tpu_torch.io.synthetic import SyntheticSequence, closed_box
+    from scavislam_tpu_torch.models.frontend import StereoFrontend
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.ops.image import binomial3
+    from scavislam_tpu_torch.ops.stereo import _sobel_x_prefilter
+    from scavislam_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    num_disp = 16 * cfg.ui.num_disp16
+
+    # -- 2. kernel build
+    stereo_bm._Kernel.load(num_disp)
+    print(f"build: stereo_bm D={num_disp} built+loaded in "
+          f"{stereo_bm._Kernel.build_seconds[num_disp]:.2f} s", flush=True)
+    for log in sorted(stereo_bm.BUILD_DIR.glob(f"*_d{num_disp}_*.log")):
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: ptxas {line.strip()}", flush=True)
+
+    cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
+                              (cfg.cam.width, cfg.cam.height), cfg.cam.baseline)
+    seq = SyntheticSequence(cam, n_frames=N_FRAMES, kind="wander",
+                            planes=closed_box(), step=0.06, device=dev)
+
+    # -- 3. kernel against its plain version, at the main path's shapes
+    f0 = seq.frame(0)
+    lf = _sobel_x_prefilter(binomial3(f0["left"]))
+    rf = _sobel_x_prefilter(binomial3(f0["right"]))
+    d_k = stereo_bm.bm_cuda(lf, rf, num_disp, 5)
+    d_p = stereo_bm.bm_plain(lf, rf, num_disp, 5)
+    torch.cuda.synchronize()
+    vk, vp = d_k > 0, d_p > 0
+    mask_agree = float((vk == vp).float().mean())
+    both = vk & vp
+    diff = torch.abs(d_k - d_p)
+    max_abs_err = float(diff.max())
+    close = float((diff[both] <= DISP_TOL).float().mean()) if both.any() else 0.0
+    max_both = float(diff[both].max()) if both.any() else float("nan")
+    gt = f0["disp_gt"]
+    m = vk & (gt > 1) & (gt < num_disp - 1)
+    gt_med = float(torch.median(torch.abs(d_k[m] - gt[m])))
+    ms_k = _cuda_ms(lambda: stereo_bm.bm_cuda(lf, rf, num_disp, 5), TIMING_RUNS)
+    ms_p = _cuda_ms(lambda: stereo_bm.bm_plain(lf, rf, num_disp, 5), TIMING_RUNS)
+    print(f"kernel: {tuple(lf.shape)} D={num_disp} valid kernel "
+          f"{float(vk.float().mean()):.4f} plain {float(vp.float().mean()):.4f} "
+          f"mask_agree {mask_agree:.6f} |d|<={DISP_TOL} on {close:.6f} of both-valid "
+          f"(max {max_both:.3g}) max_abs_err {max_abs_err:.3g} "
+          f"median |d-gt| {gt_med:.4f} px; ms kernel {ms_k:.4f} plain {ms_p:.4f}",
+          flush=True)
+    if mask_agree < AGREE_MIN or close < AGREE_MIN:
+        _fail("kernel disagrees with its plain version")
+    if not gt_med < 0.5:
+        _fail(f"kernel median error against ground truth {gt_med} px")
+
+    # -- 4. the slice: StereoFrontend on the wander, Config() defaults
+    frames = []
+    for i in range(N_FRAMES):
+        f = seq.frame(i)
+        frames.append({"frame_id": i, "left": f["left"], "right": f["right"],
+                       "T_cw_gt": f["T_cw_gt"]})
+    torch.cuda.synchronize()
+    warm = StereoFrontend(cam, cfg, device=dev)  # cuBLAS/cuSOLVER init
+    warm.process_first_frame(frames[0])
+    warm.process_frame(frames[1])
+    torch.cuda.synchronize()
+
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    fe = StereoFrontend(cam, cfg, device=dev)
+    t0 = time.perf_counter()
+    fe.process_first_frame(frames[0])
+    est = [fe._world_pose()]
+    stepped = tracked = 1
+    t1 = time.perf_counter()
+    for f in frames[1:]:
+        stepped += 1
+        ok, _ = fe.process_frame(f)
+        if not ok:
+            break
+        tracked += 1
+        est.append(fe._world_pose())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = stereo_bm.block_matching_disparity_bm.launches
+    ate = _ate(est, [f["T_cw_gt"] for f in frames[:tracked]])
+    fps = (tracked - 1) / (t2 - t1)
+    print(f"slice: {tracked}/{N_FRAMES} frames tracked, {fe.next_kf} keyframes, "
+          f"ATE {ate:.5f} m, {fps:.2f} frames/s over frames 1..{tracked - 1} "
+          f"(first frame {1000 * (t1 - t0):.1f} ms), kernel launches {launches} "
+          f"for {stepped} frames stepped", flush=True)
+    if tracked != N_FRAMES:
+        _fail(f"tracking failed at frame {tracked}")
+    if fe.next_kf < 2:
+        _fail("fewer than 2 keyframes")
+    if launches != stepped:
+        _fail(f"kernel launches {launches} != frames stepped {stepped}")
+    if not ate < ATE_MAX:
+        _fail(f"ATE {ate} m")
+
+    print(json.dumps({"kernels": [{
+        "name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,
+        "replaces": REPLACES, "launches": launches,
+        "max_abs_err": max_abs_err, "ms": ms_k, "plain_ms": ms_p,
+    }]}))
+    print(card_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,266 @@
+"""Block-matching stereo: the hand-written Hopper kernel and its plain twin.
+
+Replaces the Pallas TPU kernel ``scavislam_tpu/ops/stereo_pallas.py::
+_bm_kernel`` (``block_matching_disparity_pallas``, stereo method 2 — the
+default). The CUDA C++ kernel is ``csrc/stereo_bm.cu`` (one thread block per
+image row, window rows staged in shared memory, per-disparity costs in
+registers; its header says what bounds it on the H100). It is compiled for
+``sm_90a`` with nvcc at first use, once per disparity count, into
+``build/kernels/`` and bound with ctypes; it launches on PyTorch's current
+stream.
+
+Semantics of the TPU kernel, kept exactly (both versions here):
+- SAD over an 11x11 window of the Sobel-x prefiltered images; a column
+  with u < d, or a tap outside the image, contributes BIG = 1e9; a pixel is
+  valid only if its best cost is < 1e4;
+- argmin with strict < (ties keep the smallest d); runner-up excludes
+  |d - best| <= 1, uniqueness ``cmin * 1.10 <= c2``;
+- texture: box sum of |lf| / 121 > 0.01;
+- parabola subpixel only where both neighbours are < BIG, clipped to +-0.5;
+- left-right check |best - bestR(u - best)| <= 1 against the right-view
+  winner map (wrapped index, as the TPU kernel's circular roll);
+- the first and last `radius` rows are invalid. Any H is accepted.
+
+Dispatch: ``block_matching_disparity_bm`` runs the plain PyTorch version for
+a tensor on the CPU and the CUDA kernel for a CUDA tensor; there is no
+fallback between them. ``block_matching_disparity_bm.launches`` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from scavislam_tpu_torch.ops.stereo import _sobel_x_prefilter
+
+BIG = 1.0e9
+SUPPORTED_NUM_DISP = (16, 32, 48, 64, 80, 96, 112, 128)
+_SMEM_LIMIT = 232448  # bytes of dynamic shared memory one block may use
+
+_REPO = Path(__file__).resolve().parents[2]
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stereo_bm.cu"
+BUILD_DIR = _REPO / "build" / "kernels"
+
+
+# -- plain PyTorch version ---------------------------------------------------
+
+def _shift_cols(x: torch.Tensor, k: int, fill: float) -> torch.Tensor:
+    """Column j reads j - k (k > 0: from the left; k < 0: from the right),
+    `fill` where that column is outside the image."""
+    pad = torch.full((*x.shape[:-1], abs(k)), fill, dtype=x.dtype,
+                     device=x.device)
+    if k > 0:
+        return torch.cat([pad, x[..., :-k]], dim=-1)
+    return torch.cat([x[..., -k:], pad], dim=-1)
+
+
+def _box_h(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Horizontal (2r+1)-tap sum in the kernel's order u, u-1, u+1, u-2, ...
+    with BIG for taps outside the image."""
+    acc = x
+    for k in range(1, radius + 1):
+        acc = acc + _shift_cols(x, k, BIG)
+        acc = acc + _shift_cols(x, -k, BIG)
+    return acc
+
+
+def _box_v(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Vertical (2r+1)-row sum, top row first (rows outside the image read
+    0; those output rows are invalidated anyway)."""
+    h = x.shape[-2]
+    xp = torch.nn.functional.pad(x, (0, 0, radius, radius))
+    acc = torch.zeros_like(x)
+    for k in range(2 * radius + 1):
+        acc = acc + xp[..., k:k + h, :]
+    return acc
+
+
+def bm_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
+             radius: int = 5, uniqueness_ratio: float = 1.10,
+             texture_threshold: float = 0.01) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on prefiltered images, as a
+    (D, H, W) cost-volume program. Bit-for-bit the kernel's arithmetic."""
+    h, w = lf.shape
+    dev = lf.device
+    D = num_disp
+    col = torch.arange(w, device=dev)
+    dd = torch.arange(D, device=dev)
+    src = col[None, :] - dd[:, None]  # (D, W)
+    rfd = rf[:, src.clamp(min=0)].permute(1, 0, 2)  # (D, H, W)
+    diff = torch.where((src >= 0)[:, None, :], torch.abs(lf[None] - rfd),
+                       torch.full_like(rfd, BIG))
+    cost = _box_v(_box_h(diff, radius), radius)
+
+    big = torch.full((h, w), BIG, dtype=lf.dtype, device=dev)
+    best = torch.argmin(cost, dim=0)
+    cmin = torch.gather(cost, 0, best[None])[0]
+    has = cmin < BIG  # strict-< scan from BIG: no update leaves (0, BIG)
+    best = torch.where(has, best, torch.zeros_like(best))
+    cmin = torch.where(has, cmin, big)
+
+    far = torch.abs(dd[:, None, None] - best[None]) > 1
+    c2 = torch.where(far, cost, torch.full_like(cost, float("inf"))).amin(0)
+    c2 = torch.minimum(c2, big)
+    c_m = torch.where(
+        best >= 1, torch.gather(cost, 0, (best - 1).clamp(min=0)[None])[0], big)
+    c_p = torch.where(
+        best <= D - 2,
+        torch.gather(cost, 0, (best + 1).clamp(max=D - 1)[None])[0], big)
+
+    tex = _box_v(_box_h(torch.abs(lf), radius), radius)
+    full = float((2 * radius + 1) ** 2)
+
+    denom = c_m + c_p - 2.0 * cmin
+    interior = (best > 0) & (best < D - 1) & (c_m < BIG) & (c_p < BIG)
+    delta = torch.where(interior & (denom > 1e-9),
+                        0.5 * (c_m - c_p) / torch.clamp(denom, min=1e-9),
+                        torch.zeros_like(denom))
+    disp = best.to(torch.float32) + torch.clamp(delta, -0.5, 0.5)
+
+    # right-view winner: candidate for right pixel u is cost[d][u + d]
+    ridx = col[None, :] + dd[:, None]  # (D, W)
+    cl = torch.gather(cost, 2, ridx.clamp(max=w - 1)[:, None, :].expand(-1, h, -1))
+    cl = torch.where((ridx < w)[:, None, :], cl, torch.full_like(cl, BIG))
+    bestr = torch.argmin(cl, dim=0)
+    bestr_c = torch.gather(cl, 0, bestr[None])[0]
+    bestr = torch.where(bestr_c < BIG, bestr, torch.zeros_like(bestr))
+    lr = torch.gather(bestr, 1, torch.remainder(col[None, :] - best, w))
+    lr_ok = torch.abs(best - lr) <= 1
+
+    row = torch.arange(h, device=dev)[:, None]
+    in_img = (row >= radius) & (row < h - radius)
+    valid = ((cmin < 1e4) & (cmin * uniqueness_ratio <= c2)
+             & (tex / full > texture_threshold) & (best > 0) & in_img & lr_ok)
+    return torch.where(valid, disp, torch.full_like(disp, -1.0))
+
+
+# -- the CUDA kernel -----------------------------------------------------------
+
+class _Kernel:
+    """The compiled shared libraries, one per disparity count, built once
+    per process from the source in the checkout (keyed by the source's
+    hash) into build/kernels/."""
+
+    libs: dict = {}
+    build_seconds: dict = {}
+
+    @classmethod
+    def load(cls, num_disp: int):
+        if num_disp not in cls.libs:
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(_build(_SOURCE, num_disp)))
+            lib.stereo_bm_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ]
+            lib.stereo_bm_launch.restype = ctypes.c_int
+            lib.stereo_bm_num_disp.argtypes = []
+            lib.stereo_bm_num_disp.restype = ctypes.c_int
+            lib.stereo_bm_error_string.argtypes = [ctypes.c_int]
+            lib.stereo_bm_error_string.restype = ctypes.c_char_p
+            if lib.stereo_bm_num_disp() != num_disp:
+                raise RuntimeError(f"{lib._name} was built for "
+                                   f"{lib.stereo_bm_num_disp()} disparities")
+            cls.libs[num_disp] = lib
+            cls.build_seconds[num_disp] = time.perf_counter() - t0
+        return cls.libs[num_disp]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (CUDA_HOME or /usr/local/cuda)")
+    return path
+
+
+def _build(source: Path, num_disp: int) -> Path:
+    """nvcc -> build/kernels/libstereo_bm_d<D>_<hash>.so (skipped when
+    present); the ptxas report goes beside it as .log."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"libstereo_bm_d{num_disp}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "--fmad=false", f"-DSTEREO_BM_D={num_disp}", "-Xptxas", "-v",
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def bm_cuda(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
+            radius: int = 5, uniqueness_ratio: float = 1.10,
+            texture_threshold: float = 0.01) -> torch.Tensor:
+    """Launch the CUDA kernel on prefiltered images (no counting: the
+    dispatcher counts)."""
+    for name, x in (("left", lf), ("right", rf)):
+        if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
+            raise ValueError(f"{name}: need a 2-D float32 CUDA tensor, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if lf.shape != rf.shape or lf.device != rf.device:
+        raise ValueError("left/right shape or device mismatch")
+    if num_disp not in SUPPORTED_NUM_DISP:
+        raise ValueError(f"num_disp {num_disp} not in {SUPPORTED_NUM_DISP}")
+    h, w = lf.shape
+    smem = (2 * (2 * radius + 1) + 3) * w * 4
+    if smem > _SMEM_LIMIT or radius < 1 or h < 1:
+        raise ValueError(f"shape {tuple(lf.shape)} / radius {radius} needs "
+                         f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    lf = lf.contiguous()
+    rf = rf.contiguous()
+    out = torch.empty_like(lf)
+    lib = _Kernel.load(num_disp)
+    with torch.cuda.device(lf.device):
+        stream = torch.cuda.current_stream(lf.device).cuda_stream
+        err = lib.stereo_bm_launch(
+            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), h, w, num_disp,
+            radius, float(uniqueness_ratio), float(texture_threshold), stream)
+    if err != 0:
+        raise RuntimeError("stereo_bm kernel launch failed: "
+                           + lib.stereo_bm_error_string(err).decode())
+    return out
+
+
+def block_matching_disparity_bm(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    num_disp: int = 64,
+    radius: int = 5,
+    uniqueness_ratio: float = 1.10,
+    texture_threshold: float = 0.01,
+) -> torch.Tensor:
+    """Dense disparity with the block-matching kernel's semantics (stereo
+    method 2). Prefilters, then runs the CUDA kernel for a CUDA tensor or
+    the plain version for a CPU tensor. Returns f32 (H, W), -1 invalid."""
+    lf = _sobel_x_prefilter(left)
+    rf = _sobel_x_prefilter(right)
+    if lf.is_cuda:
+        out = bm_cuda(lf, rf, num_disp, radius, uniqueness_ratio,
+                      texture_threshold)
+        block_matching_disparity_bm.launches += 1
+        return out
+    if lf.device.type != "cpu":
+        raise ValueError(f"no block-matching kernel for device {lf.device}")
+    return bm_plain(lf, rf, num_disp, radius, uniqueness_ratio,
+                    texture_threshold)
+
+
+block_matching_disparity_bm.launches = 0
