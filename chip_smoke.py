@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's stereo-VO main path once on one CUDA card.
+"""Drive the PyTorch port's stereo-VO paths once on one CUDA card: the
+synchronous and pipelined single-stream frontend and the 8-stream pool.
 
 Run from the root of a checkout, with no arguments:
 
@@ -19,9 +20,25 @@ non-zero before the result line):
    2) on the wander-in-closed-box workload at step 0.06, 80 frames: frames/s,
    keyframes, ATE against ground truth and the kernel's launch count, which
    must equal the frames stepped; every frame must track, >= 2 keyframes,
-   ATE < 0.05 m.
+   ATE < 0.05 m;
+5. batched — frame 0 of 8 scenes at 512x384 (stream 0 closed_box(), streams
+   1-7 varied_box(s)), binomial3-smoothed and Sobel-prefiltered: the batched
+   kernel must equal (torch.equal) its plain version and the single-image
+   kernel per stream; median ms of 25 runs of the batched kernel, the plain
+   batched version and 8 single-image launches;
+6. pipelined — StereoFrontend.process_frame_pipelined at depth 2 then
+   flush_pipeline on phase 4's frames: frames/s beside phase 4's, the
+   timing-log split (dispatch / fetch wait / consume); every frame tracked,
+   >= 2 keyframes, ATE < 0.05 m, one single-image launch per frame;
+7. pool    — StreamPool(8 streams, Config() defaults, depth 2), each stream
+   on its phase-5 scene along the wander at step 0.06, 512x384, 40 ticks:
+   aggregate frames/s, ms per tick and its split, keyframes per stream;
+   every stream alive with 40 trajectory entries, >= 2 keyframes and
+   ATE < 0.05 m each; one batched launch per tick dispatched and no
+   single-image launch.
 
-The last two lines are the per-kernel JSON record and the result line.
+The last three lines are the per-kernel JSON record, the card's name and
+power limit, and the result line.
 """
 
 import json
@@ -34,7 +51,11 @@ import torch
 
 ROUTE_SOURCE = "scavislam_tpu_torch/csrc/stereo_bm.cu"
 REPLACES = "scavislam_tpu/ops/stereo_pallas.py:70"  # _bm_kernel
+# block_matching_disparity_pallas_batched
+REPLACES_BATCHED = "scavislam_tpu/ops/stereo_pallas.py:322"
 N_FRAMES = 80
+N_STREAMS = 8
+N_TICKS = 40
 TIMING_RUNS = 25
 AGREE_MIN = 0.999
 DISP_TOL = 1e-3
@@ -70,6 +91,11 @@ def _ate(est, gt):
         errs.append(Te.R @ (-Rg.T @ tg) + Te.t)  # translation of Te @ Tg^-1
     errs = np.stack(errs)
     return float(np.sqrt((errs ** 2).sum(axis=1).mean()))
+
+
+def _scenes(n):
+    from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
+    return [closed_box()] + [varied_box(s) for s in range(1, n)]
 
 
 def main():
@@ -185,11 +211,150 @@ def main():
     if not ate < ATE_MAX:
         _fail(f"ATE {ate} m")
 
-    print(json.dumps({"kernels": [{
-        "name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": ms_k, "plain_ms": ms_p,
-    }]}))
+    # -- 5. the batched kernel against its plain version and the
+    # single-image kernel, at the pool's shapes
+    ms_seqs = [SyntheticSequence(cam, n_frames=N_TICKS, kind="wander",
+                                 planes=p, step=0.06, device=dev)
+               for p in _scenes(N_STREAMS)]
+    f0s = [q.frame(0) for q in ms_seqs]
+    lfb = torch.stack([_sobel_x_prefilter(binomial3(f["left"])) for f in f0s])
+    rfb = torch.stack([_sobel_x_prefilter(binomial3(f["right"])) for f in f0s])
+    db_k = stereo_bm.bm_cuda_batched(lfb, rfb, num_disp, 5)
+    db_p = stereo_bm.bm_plain_batched(lfb, rfb, num_disp, 5)
+    db_1 = torch.stack([stereo_bm.bm_cuda(lfb[b], rfb[b], num_disp, 5)
+                        for b in range(N_STREAMS)])
+    torch.cuda.synchronize()
+    eq_plain = torch.equal(db_k, db_p)
+    eq_single = torch.equal(db_k, db_1)
+    max_abs_err_b = float(torch.abs(db_k - db_p).max())
+    ms_kb = _cuda_ms(lambda: stereo_bm.bm_cuda_batched(lfb, rfb, num_disp, 5),
+                     TIMING_RUNS)
+    ms_pb = _cuda_ms(lambda: stereo_bm.bm_plain_batched(lfb, rfb, num_disp, 5),
+                     TIMING_RUNS)
+    ms_k1 = _cuda_ms(lambda: [stereo_bm.bm_cuda(lfb[b], rfb[b], num_disp, 5)
+                              for b in range(N_STREAMS)], TIMING_RUNS)
+    valid_b = [round(float((db_k[b] > 0).float().mean()), 4)
+               for b in range(N_STREAMS)]
+    print(f"batched: {tuple(lfb.shape)} D={num_disp} equal to plain "
+          f"{eq_plain}, equal to single-image kernel per stream {eq_single}, "
+          f"max_abs_err {max_abs_err_b:.3g}, valid per stream {valid_b}; "
+          f"ms batched kernel {ms_kb:.4f} plain batched {ms_pb:.4f} "
+          f"{N_STREAMS} single-image launches {ms_k1:.4f}", flush=True)
+    if not (eq_plain and eq_single):
+        _fail("batched kernel disagrees with its plain version or with the "
+              "single-image kernel")
+    if min(valid_b) < 0.3:
+        _fail(f"batched kernel valid fractions {valid_b}")
+
+    # -- 6. the pipelined single-stream path on phase 4's frames
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    fe = StereoFrontend(cam, cfg, device=dev)
+    fe.pipeline_depth = 2
+    fe.timing_log = []
+    t0 = time.perf_counter()
+    fe.process_first_frame(frames[0])
+    poses = {0: fe._world_pose()}
+    t1 = time.perf_counter()
+    failed = None
+    for f in frames[1:]:
+        r = fe.process_frame_pipelined(f)
+        if r is not None:
+            ok, _, fid = r
+            if not ok:
+                failed = fid
+                break
+            poses[fid] = fe._world_pose()
+    if failed is None:
+        for ok, _, fid, pose, _ in fe.flush_pipeline():
+            if not ok:
+                failed = fid
+                break
+            if fid is not None:
+                poses[fid] = pose
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches_p = stereo_bm.block_matching_disparity_bm.launches
+    tracked_p = len(poses)
+    fps_p = (N_FRAMES - 1) / (t2 - t1)
+    ate_p = _ate([poses[i] for i in sorted(poses)],
+                 [frames[i]["T_cw_gt"] for i in sorted(poses)])
+    split = np.asarray([x[1:] for x in fe.timing_log]) * 1000.0
+    print(f"pipelined: {tracked_p}/{N_FRAMES} frames tracked, {fe.next_kf} "
+          f"keyframes, ATE {ate_p:.5f} m, {fps_p:.2f} frames/s over frames "
+          f"1..{N_FRAMES - 1} (synchronous phase 4: {fps:.2f}); per frame ms "
+          f"dispatch {split[:, 0].mean():.2f} fetch wait {split[:, 1].mean():.3f} "
+          f"consume {split[:, 2].mean():.2f}; kernel launches {launches_p} "
+          f"for {N_FRAMES} frames stepped", flush=True)
+    if failed is not None or tracked_p != N_FRAMES:
+        _fail(f"pipelined tracking failed at frame {failed}")
+    if fe.next_kf < 2:
+        _fail("pipelined: fewer than 2 keyframes")
+    if launches_p != N_FRAMES:
+        _fail(f"pipelined: kernel launches {launches_p} != {N_FRAMES}")
+    if not ate_p < ATE_MAX:
+        _fail(f"pipelined ATE {ate_p} m")
+
+    # -- 7. the pool: 8 streams through one batched step per tick
+    from scavislam_tpu_torch.parallel.stream_pool import StreamPool
+
+    ticks = [[{"frame_id": i, "left": f["left"], "right": f["right"]}
+              for f in (q.frame(i) for q in ms_seqs)] for i in range(N_TICKS)]
+    gts = [[q.poses[i] for i in range(N_TICKS)] for q in ms_seqs]
+    torch.cuda.synchronize()
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    pool = StreamPool(cam, cfg, n_streams=N_STREAMS, mesh=None,
+                      pipeline_depth=2, device=dev)
+    pool.timing_log = []
+    t0 = time.perf_counter()
+    pool.process_first_frames(ticks[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for tick in ticks[1:]:
+        pool.process_frames(tick)
+    pool.finish()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches_b = stereo_bm.block_matching_disparity_bm_batched.launches
+    launches_1 = stereo_bm.block_matching_disparity_bm.launches
+    fps_pool = N_STREAMS * (N_TICKS - 1) / (t2 - t1)
+    ms_tick = 1000.0 * (t2 - t1) / (N_TICKS - 1)
+    kfs = pool.keyframe_counts()
+    ates = []
+    for s in range(N_STREAMS):
+        traj = pool.trajectories[s]
+        ates.append(_ate([T for _, T in traj], [gts[s][i] for i, _ in traj])
+                    if traj else float("inf"))
+    lens = [len(t) for t in pool.trajectories]
+    split = np.asarray(pool.timing_log) * 1000.0
+    print(f"pool: {N_STREAMS} streams x {N_TICKS} ticks, alive {pool.alive}, "
+          f"trajectory entries {lens}, keyframes {kfs}, ATE per stream "
+          f"{[round(a, 5) for a in ates]} m; {fps_pool:.2f} frames/s "
+          f"aggregate, {ms_tick:.1f} ms per tick over ticks 1..{N_TICKS - 1} "
+          f"(first tick {1000 * (t1 - t0):.1f} ms); per tick ms dispatch "
+          f"{split[:, 0].mean():.2f} fetch wait {split[:, 1].mean():.3f} "
+          f"consume {split[:, 2].mean():.2f}; batched kernel launches "
+          f"{launches_b} for {N_TICKS} ticks dispatched, single-image "
+          f"launches {launches_1}", flush=True)
+    if not all(pool.alive) or lens != [N_TICKS] * N_STREAMS:
+        _fail("pool: a stream lost tracking")
+    if min(kfs) < 2:
+        _fail(f"pool: keyframes per stream {kfs}")
+    if not max(ates) < ATE_MAX:
+        _fail(f"pool: ATE per stream {ates}")
+    if launches_b != N_TICKS or launches_1 != 0:
+        _fail(f"pool: batched launches {launches_b} != {N_TICKS} ticks or "
+              f"single-image launches {launches_1} != 0")
+
+    print(json.dumps({"kernels": [
+        {"name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,
+         "replaces": REPLACES, "launches": launches,
+         "max_abs_err": max_abs_err, "ms": ms_k, "plain_ms": ms_p},
+        {"name": "stereo_bm_batched", "route": "cuda", "source": ROUTE_SOURCE,
+         "replaces": REPLACES_BATCHED, "launches": launches_b,
+         "max_abs_err": max_abs_err_b, "ms": ms_kb, "plain_ms": ms_pb},
+    ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -1,14 +1,21 @@
 // Block-matching stereo disparity for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel scavislam_tpu/ops/stereo_pallas.py::_bm_kernel
-// (called through block_matching_disparity_pallas). Same semantics, not the
-// same design: the TPU kernel keeps a 32-row slab's (D, rows, W) cost volume
-// in VMEM and box-filters with lane rolls and a banded matmul; here one
-// thread block owns one image row.
+// through both of its callers: block_matching_disparity_pallas (one image)
+// and block_matching_disparity_pallas_batched (B streams in one launch over
+// a (B, H/rows) grid). Same semantics, not the same design: the TPU kernel
+// keeps a 32-row slab's (D, rows, W) cost volume in VMEM and box-filters
+// with lane rolls and a banded matmul; here one thread block owns one image
+// row of one stream.
 //
 //   * Inputs: the Sobel-x prefiltered left/right images (clipped to +-0.5,
-//     applied outside the kernel), f32 (H, W), row-major, contiguous.
-//   * Output: f32 (H, W) disparity, -1 where invalid.
+//     applied outside the kernel), f32 (B, H, W), row-major, contiguous;
+//     the single-image entry is B = 1.
+//   * Output: f32 (B, H, W) disparity, -1 where invalid.
+//   * Grid (H, B): blockIdx.x is the row, blockIdx.y the stream, whose three
+//     planes start b * H * W floats in. A stream's rows run the same code
+//     on the same bytes whatever B is, so the batched result is bit for bit
+//     the single-image result of each stream.
 //
 // Per row v in [R, H-R) a block stages the (2R+1) window rows of both
 // images in shared memory. Each thread walks columns u and computes
@@ -76,6 +83,10 @@ bm_row_kernel(const float* __restrict__ lf, const float* __restrict__ rf,
               float* __restrict__ disp, int H, int W, int R, float uniq,
               float tex_thr) {
   const int v = blockIdx.x;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * H * W;
+  lf += plane;
+  rf += plane;
+  disp += plane;
   if (v < R || v >= H - R) {
     for (int u = threadIdx.x; u < W; u += blockDim.x) disp[v * W + u] = -1.0f;
     return;
@@ -176,15 +187,18 @@ bm_row_kernel(const float* __restrict__ lf, const float* __restrict__ rf,
 }
 
 template <int D>
-cudaError_t launch(const float* lf, const float* rf, float* disp, int H, int W,
-                   int R, float uniq, float tex_thr, cudaStream_t stream) {
+cudaError_t launch(const float* lf, const float* rf, float* disp, int B, int H,
+                   int W, int R, float uniq, float tex_thr,
+                   cudaStream_t stream) {
+  if (B < 1 || B > 65535) return cudaErrorInvalidValue;  // gridDim.y limit
   const size_t smem = static_cast<size_t>(2 * (2 * R + 1) + 3) * W * 4;
   cudaError_t err = cudaFuncSetAttribute(
       bm_row_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  bm_row_kernel<D><<<H, kThreads, smem, stream>>>(lf, rf, disp, H, W, R, uniq,
-                                                  tex_thr);
+  const dim3 grid(H, B);
+  bm_row_kernel<D><<<grid, kThreads, smem, stream>>>(lf, rf, disp, H, W, R,
+                                                     uniq, tex_thr);
   return cudaGetLastError();
 }
 
@@ -204,7 +218,19 @@ extern "C" int stereo_bm_launch(const float* lf, const float* rf, float* disp,
                                 float tex_thr, void* stream) {
   if (D != STEREO_BM_D) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<STEREO_BM_D>(
-      lf, rf, disp, H, W, R, uniq, tex_thr, static_cast<cudaStream_t>(stream)));
+      lf, rf, disp, 1, H, W, R, uniq, tex_thr,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B streams of (H, W) planes, stacked contiguously, in one launch.
+extern "C" int stereo_bm_launch_batched(const float* lf, const float* rf,
+                                        float* disp, int B, int H, int W,
+                                        int D, int R, float uniq,
+                                        float tex_thr, void* stream) {
+  if (D != STEREO_BM_D) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<STEREO_BM_D>(
+      lf, rf, disp, B, H, W, R, uniq, tex_thr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* stereo_bm_error_string(int err) {

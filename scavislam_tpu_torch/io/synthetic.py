@@ -58,6 +58,15 @@ def closed_box() -> list[Plane]:
     ]
 
 
+def varied_box(seed: int) -> list[Plane]:
+    """:func:`closed_box` with per-plane texture phases drawn from `seed`
+    (``np.random.RandomState(seed).uniform(0, 100)``, as f32): a distinct
+    scene appearance per seed, the same geometry."""
+    rng = np.random.RandomState(seed)
+    return [p._replace(tex_phase=float(np.float32(rng.uniform(0, 100))))
+            for p in closed_box()]
+
+
 def _hash_lattice(ix, iy, phase):
     """Pseudo-random value in [0,1) at integer lattice points (sin hash)."""
     ph = float(np.float32(phase) * np.float32(37.719))  # an f32 product

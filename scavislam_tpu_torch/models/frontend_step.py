@@ -66,8 +66,19 @@ MATCH_SEARCH_RADIUS_PX = 16.0
 # per-level extra subsampling of the dense-tracking cloud (on top of the
 # pyramid's 2^l)
 DENSE_SUBS = (2, 2, 1)
+# the multistream step's density: levels 0-1 at every 4th pixel (the
+# reference's CPU tracker density); the coarse level stays full
+DENSE_SUBS_BATCHED = (4, 4, 1)
+# dense-tracking samplers accepted for API parity; both run the exact f32
+# bilinear sampler ("matmul" names the twin's bf16 matrix-unit sampler,
+# which the port does not reproduce)
+DENSE_SAMPLERS = ("qpack", "matmul")
 
 FAST_THRESHOLD = 10.0 / 255.0
+# uint8 -> [0, 1] as a multiply by the f32 reciprocal: the twin's compiled
+# step computes `u8 / 255.0` that way (XLA rewrites the division), which
+# differs from a true division on 126 of the 256 byte values
+_U8_SCALE = float(np.float32(1.0 / 255.0))
 ZMSSD_THR = 0.18  # zero-mean SSD acceptance threshold
 
 
@@ -108,6 +119,14 @@ class FrontendStepOut(NamedTuple):
     cloud_valids: tuple
     intens: tuple
     cloud_J: tuple  # per-level (N, 6) template Jacobians
+
+
+def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> f32 in [0, 1] (as the twin's compiled step does);
+    float frames pass through."""
+    if frames.dtype == torch.uint8:
+        return frames.to(torch.float32) * _U8_SCALE
+    return frames
 
 
 def _extract_bucket_patches(img, buckets_uv, buckets_valid):
@@ -274,14 +293,17 @@ def frontend_step(
     use_external_disp: bool = False,
     max_reproj_err: float = 2.0,
     stereo_method: int = 2,
+    *,
+    dense_subs: tuple = DENSE_SUBS,  # dense-cloud per-level subsampling
+    dense_sample: str = "qpack",  # one of DENSE_SAMPLERS (both exact)
 ) -> FrontendStepOut:
+    if dense_sample not in DENSE_SAMPLERS:
+        raise ValueError(f"dense_sample {dense_sample!r} not in "
+                         f"{DENSE_SAMPLERS}")
     dev = frames_stacked.device
     f32 = torch.float32
     # -- 1. unpack + preprocess (uint8 frames normalized on device)
-    if frames_stacked.dtype == torch.uint8:
-        frames_f = frames_stacked.to(f32) / 255.0
-    else:
-        frames_f = frames_stacked
+    frames_f = normalize_frames(frames_stacked)
     img = frames_f[0]
     right = frames_f[1]
     external_disp = frames_f[2] if use_external_disp else frames_f[0]
@@ -421,7 +443,8 @@ def frontend_step(
     # -- 9. next frame's dense state, anchored at THIS frame
     clouds, valids, intens, cloud_J = _cloud_state(
         pyr, disp, torch.eye(3, dtype=f32, device=dev),
-        torch.zeros(3, dtype=f32, device=dev), cam_params, levels, dxs, dys)
+        torch.zeros(3, dtype=f32, device=dev), cam_params, levels, dxs, dys,
+        dense_subs=dense_subs)
 
     packed = torch.cat([
         R_cw.reshape(-1), t_cw,                      # 0:9, 9:12
@@ -449,16 +472,16 @@ def frontend_step(
 
 
 def _cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels, dxs=None,
-                 dys=None):
+                 dys=None, dense_subs=DENSE_SUBS):
     """Back-project the disparity map into the ACTKEY frame per level,
-    subsampled per DENSE_SUBS. With the frame's Sobel pyramids (dxs/dys)
+    subsampled per `dense_subs`. With the frame's Sobel pyramids (dxs/dys)
     also returns the per-level inverse-compositional template Jacobians
     (valid for the identity anchor only)."""
     clouds, valids, intens, Js = [], [], [], []
     dev = disp.device
     for level in range(levels):
         s = 2**level
-        sub = DENSE_SUBS[level] if level < len(DENSE_SUBS) else 1
+        sub = dense_subs[level] if level < len(dense_subs) else 1
         focal, ppx, ppy, baseline = cam_params[level]
         d_l = disp[:: s * sub, :: s * sub]
         hh, ww = d_l.shape
@@ -489,10 +512,12 @@ def _cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels, dxs=None,
     return tuple(clouds), tuple(valids), tuple(intens)
 
 
-def rebuild_cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels=3):
+def rebuild_cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels=3,
+                        dense_subs=DENSE_SUBS):
     """Re-express the dense-tracking reference state relative to a new
     actkey."""
-    return _cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels)
+    return _cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels,
+                        dense_subs=dense_subs)
 
 
 # -- new-keyframe point spawning ------------------------------------------------

@@ -1,13 +1,17 @@
 """Block-matching stereo: the hand-written Hopper kernel and its plain twin.
 
 Replaces the Pallas TPU kernel ``scavislam_tpu/ops/stereo_pallas.py::
-_bm_kernel`` (``block_matching_disparity_pallas``, stereo method 2 — the
-default). The CUDA C++ kernel is ``csrc/stereo_bm.cu`` (one thread block per
-image row, window rows staged in shared memory, per-disparity costs in
-registers; its header says what bounds it on the H100). It is compiled for
-``sm_90a`` with nvcc at first use, once per disparity count, into
-``build/kernels/`` and bound with ctypes; it launches on PyTorch's current
-stream.
+_bm_kernel`` through both of its callers: ``block_matching_disparity_pallas``
+(one image, stereo method 2 — the default) and
+``block_matching_disparity_pallas_batched`` (B streams in one launch, the
+multistream step's stereo). The CUDA C++ kernel is ``csrc/stereo_bm.cu``
+(one thread block per image row of one stream, window rows staged in shared
+memory, per-disparity costs in registers; its header says what bounds it on
+the H100). It is compiled for ``sm_90a`` with nvcc at first use, once per
+disparity count, into ``build/kernels/`` and bound with ctypes; it launches
+on PyTorch's current stream. The batched entry runs the same kernel body
+with the stream on the grid's second axis, so each stream's result is bit
+for bit the single-image result.
 
 Semantics of the TPU kernel, kept exactly (both versions here):
 - SAD over an 11x11 window of the Sobel-x prefiltered images; a column
@@ -21,9 +25,10 @@ Semantics of the TPU kernel, kept exactly (both versions here):
   winner map (wrapped index, as the TPU kernel's circular roll);
 - the first and last `radius` rows are invalid. Any H is accepted.
 
-Dispatch: ``block_matching_disparity_bm`` runs the plain PyTorch version for
-a tensor on the CPU and the CUDA kernel for a CUDA tensor; there is no
-fallback between them. ``block_matching_disparity_bm.launches`` counts the
+Dispatch: ``block_matching_disparity_bm`` (H, W) and
+``block_matching_disparity_bm_batched`` (B, H, W) run the plain PyTorch
+version for a tensor on the CPU and the CUDA kernel for a CUDA tensor; there
+is no fallback between them. Each has its own ``.launches`` counter of
 kernel launches.
 """
 
@@ -116,7 +121,10 @@ def bm_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
         torch.gather(cost, 0, (best + 1).clamp(max=D - 1)[None])[0], big)
 
     tex = _box_v(_box_h(torch.abs(lf), radius), radius)
-    full = float((2 * radius + 1) ** 2)
+    # a tensor divisor: on a CUDA tensor PyTorch divides by a Python scalar
+    # as a multiply by its reciprocal, one ulp off the kernel's IEEE
+    # quotient, and the texture test compares that quotient to 0.01
+    full = torch.full_like(tex, float((2 * radius + 1) ** 2))
 
     denom = c_m + c_p - 2.0 * cmin
     interior = (best > 0) & (best < D - 1) & (c_m < BIG) & (c_p < BIG)
@@ -142,6 +150,17 @@ def bm_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
     return torch.where(valid, disp, torch.full_like(disp, -1.0))
 
 
+def bm_plain_batched(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
+                     radius: int = 5, uniqueness_ratio: float = 1.10,
+                     texture_threshold: float = 0.01) -> torch.Tensor:
+    """Plain version of the batched kernel on prefiltered (B, H, W) images:
+    :func:`bm_plain` per stream. A loop, not one (B, D, H, W) program: at
+    B = 8, 512x384, D = 64 each such intermediate would be ~403 MB."""
+    return torch.stack([
+        bm_plain(lf[b], rf[b], num_disp, radius, uniqueness_ratio,
+                 texture_threshold) for b in range(lf.shape[0])])
+
+
 # -- the CUDA kernel -----------------------------------------------------------
 
 class _Kernel:
@@ -163,6 +182,12 @@ class _Kernel:
                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
             ]
             lib.stereo_bm_launch.restype = ctypes.c_int
+            lib.stereo_bm_launch_batched.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ]
+            lib.stereo_bm_launch_batched.restype = ctypes.c_int
             lib.stereo_bm_num_disp.argtypes = []
             lib.stereo_bm_num_disp.restype = ctypes.c_int
             lib.stereo_bm_error_string.argtypes = [ctypes.c_int]
@@ -206,24 +231,38 @@ def _build(source: Path, num_disp: int) -> Path:
     return out
 
 
-def bm_cuda(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
-            radius: int = 5, uniqueness_ratio: float = 1.10,
-            texture_threshold: float = 0.01) -> torch.Tensor:
-    """Launch the CUDA kernel on prefiltered images (no counting: the
-    dispatcher counts)."""
+def _check_cuda_inputs(lf, rf, ndim, num_disp, radius):
+    """Raise on what the kernel does not take; returns (B, H, W)."""
     for name, x in (("left", lf), ("right", rf)):
-        if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
-            raise ValueError(f"{name}: need a 2-D float32 CUDA tensor, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_cuda or x.dtype != torch.float32 or x.dim() != ndim:
+            raise ValueError(f"{name}: need a {ndim}-D float32 CUDA tensor, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     if lf.shape != rf.shape or lf.device != rf.device:
         raise ValueError("left/right shape or device mismatch")
     if num_disp not in SUPPORTED_NUM_DISP:
         raise ValueError(f"num_disp {num_disp} not in {SUPPORTED_NUM_DISP}")
-    h, w = lf.shape
+    b, h, w = (1, *lf.shape) if ndim == 2 else lf.shape
     smem = (2 * (2 * radius + 1) + 3) * w * 4
     if smem > _SMEM_LIMIT or radius < 1 or h < 1:
         raise ValueError(f"shape {tuple(lf.shape)} / radius {radius} needs "
                          f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} outside the grid's 1..65535")
+    return b, h, w
+
+
+def _raise_on(lib, err):
+    if err != 0:
+        raise RuntimeError("stereo_bm kernel launch failed: "
+                           + lib.stereo_bm_error_string(err).decode())
+
+
+def bm_cuda(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
+            radius: int = 5, uniqueness_ratio: float = 1.10,
+            texture_threshold: float = 0.01) -> torch.Tensor:
+    """Launch the CUDA kernel on prefiltered (H, W) images (no counting:
+    the dispatcher counts)."""
+    _, h, w = _check_cuda_inputs(lf, rf, 2, num_disp, radius)
     lf = lf.contiguous()
     rf = rf.contiguous()
     out = torch.empty_like(lf)
@@ -233,9 +272,26 @@ def bm_cuda(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
         err = lib.stereo_bm_launch(
             lf.data_ptr(), rf.data_ptr(), out.data_ptr(), h, w, num_disp,
             radius, float(uniqueness_ratio), float(texture_threshold), stream)
-    if err != 0:
-        raise RuntimeError("stereo_bm kernel launch failed: "
-                           + lib.stereo_bm_error_string(err).decode())
+    _raise_on(lib, err)
+    return out
+
+
+def bm_cuda_batched(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
+                    radius: int = 5, uniqueness_ratio: float = 1.10,
+                    texture_threshold: float = 0.01) -> torch.Tensor:
+    """Launch the CUDA kernel once on prefiltered (B, H, W) images, all B
+    streams in one grid (no counting: the dispatcher counts)."""
+    b, h, w = _check_cuda_inputs(lf, rf, 3, num_disp, radius)
+    lf = lf.contiguous()
+    rf = rf.contiguous()
+    out = torch.empty_like(lf)
+    lib = _Kernel.load(num_disp)
+    with torch.cuda.device(lf.device):
+        stream = torch.cuda.current_stream(lf.device).cuda_stream
+        err = lib.stereo_bm_launch_batched(
+            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), b, h, w, num_disp,
+            radius, float(uniqueness_ratio), float(texture_threshold), stream)
+    _raise_on(lib, err)
     return out
 
 
@@ -264,3 +320,33 @@ def block_matching_disparity_bm(
 
 
 block_matching_disparity_bm.launches = 0
+
+
+def block_matching_disparity_bm_batched(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    num_disp: int = 64,
+    radius: int = 5,
+    uniqueness_ratio: float = 1.10,
+    texture_threshold: float = 0.01,
+) -> torch.Tensor:
+    """:func:`block_matching_disparity_bm` for B streams at once: (B, H, W)
+    in, f32 (B, H, W) out. Prefilters each stream, then makes ONE kernel
+    launch for a CUDA tensor or runs the plain version for a CPU tensor."""
+    if left.dim() != 3 or left.shape != right.shape:
+        raise ValueError(f"need two (B, H, W) tensors of one shape, got "
+                         f"{tuple(left.shape)} and {tuple(right.shape)}")
+    lf = torch.stack([_sobel_x_prefilter(x) for x in left])
+    rf = torch.stack([_sobel_x_prefilter(x) for x in right])
+    if lf.is_cuda:
+        out = bm_cuda_batched(lf, rf, num_disp, radius, uniqueness_ratio,
+                              texture_threshold)
+        block_matching_disparity_bm_batched.launches += 1
+        return out
+    if lf.device.type != "cpu":
+        raise ValueError(f"no block-matching kernel for device {lf.device}")
+    return bm_plain_batched(lf, rf, num_disp, radius, uniqueness_ratio,
+                            texture_threshold)
+
+
+block_matching_disparity_bm_batched.launches = 0

@@ -30,6 +30,18 @@ N_FRAMES = 8
 SNAP_FRAME = 4  # the frame whose single step is compared
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the port issues thousands of small eager ops per
+    frame, and with a test process per core torch's default of a thread per
+    core in every process oversubscribes the machine (measured ~17x slower
+    for two of these files in two processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(cls, method):
     cfg = cls()
     return dataclasses.replace(cfg, ui=dataclasses.replace(cfg.ui, stereo_method=method))

@@ -43,6 +43,18 @@ J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 T_CAM = TCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the port issues thousands of small eager ops per
+    frame, and with a test process per core torch's default of a thread per
+    core in every process oversubscribes the machine (measured ~17x slower
+    for two of these files in two processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.as_tensor(np.array(x))
 

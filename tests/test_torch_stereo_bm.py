@@ -21,6 +21,18 @@ from scavislam_tpu_torch.ops.stereo import _sobel_x_prefilter
 CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.35)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the port issues thousands of small eager ops per
+    frame, and with a test process per core torch's default of a thread per
+    core in every process oversubscribes the machine (measured ~17x slower
+    for two of these files in two processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     f = SyntheticSequence(CAM, n_frames=1).frame(0)
