@@ -6,12 +6,15 @@ held against it by the ``tests/test_torch_*.py`` parity tests. This package
 never imports jax or scavislam_tpu.
 
 Ported so far: the stereo visual-odometry slice (``models.frontend.
-StereoFrontend`` on its synchronous path) with the block matcher written by
+StereoFrontend``, synchronous and pipelined) and the multistream path
+(``parallel.stream_pool.StreamPool``), with the block matcher written by
 hand in CUDA C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
 
-Device policy: every function runs on the device of the tensors it is given;
-objects that hold state (``StereoFrontend``, ``SyntheticSequence``) take an
-explicit ``device`` argument. There is no hidden global device.
+Device policy: every function runs on the device of the tensors it is given.
+The entry points that hold state (``StereoFrontend``, ``StreamPool``,
+``SyntheticSequence``) take a ``device`` argument that defaults to the CUDA
+card (:func:`resolve_device`); without a card they raise unless the caller
+passes ``device="cpu"``. There is no hidden global device.
 """
 
 __version__ = "0.1.0"
@@ -22,3 +25,15 @@ import torch as _torch
 # jax_default_matmul_precision="highest": no TF32 in matmuls or convolutions.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> _torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    CUDA card. Raises RuntimeError when no card is present and no device
+    was given: the CPU is used only when the caller asks for it."""
+    if device is not None:
+        return _torch.device(device)
+    if not _torch.cuda.is_available():
+        raise RuntimeError('no CUDA card is available; pass device="cpu" '
+                           'to run on the CPU')
+    return _torch.device("cuda")

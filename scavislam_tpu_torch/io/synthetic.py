@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3
 
@@ -193,7 +194,7 @@ class SyntheticSequence:
         self.cam = cam
         self.planes = planes if planes is not None else default_room()
         self.poses = make_trajectory(n_frames, kind, step)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
 
     def __len__(self):
         return len(self.poses)

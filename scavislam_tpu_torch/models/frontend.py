@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3, PoseRT
 from scavislam_tpu_torch.models.frontend_step import (
@@ -121,7 +122,7 @@ class StereoFrontend:
         if self.cfg.framepipe.rectify_frame:
             raise NotImplementedError(
                 "framepipe.rectify_frame: rectification is not ported yet")
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.cam = cam
         self.levels = self.cfg.use_n_levels_in_frontent
         self.cams = [cam.scale_level(l) for l in range(self.levels)]

@@ -4,14 +4,25 @@ Replaces the Pallas TPU kernel ``scavislam_tpu/ops/stereo_pallas.py::
 _bm_kernel`` through both of its callers: ``block_matching_disparity_pallas``
 (one image, stereo method 2 — the default) and
 ``block_matching_disparity_pallas_batched`` (B streams in one launch, the
-multistream step's stereo). The CUDA C++ kernel is ``csrc/stereo_bm.cu``
-(one thread block per image row of one stream, window rows staged in shared
-memory, per-disparity costs in registers; its header says what bounds it on
-the H100). It is compiled for ``sm_90a`` with nvcc at first use, once per
-disparity count, into ``build/kernels/`` and bound with ctypes; it launches
-on PyTorch's current stream. The batched entry runs the same kernel body
-with the stream on the grid's second axis, so each stream's result is bit
-for bit the single-image result.
+multistream step's stereo). The CUDA C++ source is ``csrc/stereo_bm.cu``;
+its header says what bounds it on the H100 and how the design meets it. It
+is compiled for ``sm_90a`` with nvcc at first use, once per disparity
+count, into ``build/kernels/`` and bound with ctypes; it launches on
+PyTorch's current stream.
+
+One wrapper call is two device kernels, after the scratch's fill:
+- kernel A computes each cost once, for a tile of ``tile_shape(D)`` =
+  (T, Wt) output pixels per thread block: separable window sums in the
+  plain version's order, the left view online in d, and the right view
+  from the same costs, merged across tiles into a uint64 (B, H, W) key
+  scratch (``(float bits of cost << 32) | d``, filled with ~0 first) by
+  atomic minimum;
+- kernel B applies the left-right check and the border rows.
+The wrapper allocates the output, the int32 best-disparity plane and the
+key scratch; the kernels allocate nothing. The single-image entry is B = 1
+of the batched grid, so each stream's result is bit for bit the
+single-image result, whatever B is. The kernel is built for the 11x11
+window (``radius`` 5); the plain version takes any radius.
 
 Semantics of the TPU kernel, kept exactly (both versions here):
 - SAD over an 11x11 window of the Sobel-x prefiltered images; a column
@@ -27,9 +38,10 @@ Semantics of the TPU kernel, kept exactly (both versions here):
 
 Dispatch: ``block_matching_disparity_bm`` (H, W) and
 ``block_matching_disparity_bm_batched`` (B, H, W) run the plain PyTorch
-version for a tensor on the CPU and the CUDA kernel for a CUDA tensor; there
-is no fallback between them. Each has its own ``.launches`` counter of
-kernel launches.
+version for a tensor on the CPU and the CUDA kernels for a CUDA tensor;
+there is no fallback between them. Each has its own ``.launches`` counter,
+which counts wrapper calls that launch the kernels (one per frame, one per
+tick), not device kernels.
 """
 
 from __future__ import annotations
@@ -48,7 +60,32 @@ from scavislam_tpu_torch.ops.stereo import _sobel_x_prefilter
 
 BIG = 1.0e9
 SUPPORTED_NUM_DISP = (16, 32, 48, 64, 80, 96, 112, 128)
+KERNEL_RADIUS = 5  # the CUDA kernel's window is 11x11, fixed at compile time
+_TILE = (16, 32)  # output rows, columns per block of the cost kernel
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory one block may use
+
+
+def tile_shape(num_disp: int) -> tuple[int, int]:
+    """(T, Wt): the output rows and columns one thread block of the cost
+    kernel owns at `num_disp` disparities (the same for every supported
+    count). The block stages T + 2r input rows and computes each window
+    sum of its tile once."""
+    if num_disp not in SUPPORTED_NUM_DISP:
+        raise ValueError(f"num_disp {num_disp} not in {SUPPORTED_NUM_DISP}")
+    return _TILE
+
+
+def _smem_bytes(num_disp: int) -> int:
+    """Dynamic shared memory of one cost-kernel block (the source's
+    ``Layout<D>``): two h planes with a 4-column pad, the staged L and R
+    rows, and the right view's (cost, d) table."""
+    t, wt = tile_shape(num_disp)
+    rows = t + 2 * KERNEL_RADIUS
+    lw = wt + 2 * KERNEL_RADIUS
+    words = (2 * rows * (wt + 4) + rows * lw + rows * (lw + num_disp - 1)
+             + 2 * t * (wt + num_disp - 1))
+    return 4 * words
+
 
 _REPO = Path(__file__).resolve().parents[2]
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stereo_bm.cu"
@@ -170,32 +207,35 @@ class _Kernel:
 
     libs: dict = {}
     build_seconds: dict = {}
+    logs: dict = {}  # num_disp -> the build's ptxas report
 
     @classmethod
     def load(cls, num_disp: int):
         if num_disp not in cls.libs:
             t0 = time.perf_counter()
-            lib = ctypes.CDLL(str(_build(_SOURCE, num_disp)))
-            lib.stereo_bm_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-            ]
-            lib.stereo_bm_launch.restype = ctypes.c_int
+            so = _build(_SOURCE, num_disp)
+            lib = ctypes.CDLL(str(so))
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.stereo_bm_launch_batched.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-            ]
-            lib.stereo_bm_launch_batched.restype = ctypes.c_int
-            lib.stereo_bm_num_disp.argtypes = []
-            lib.stereo_bm_num_disp.restype = ctypes.c_int
-            lib.stereo_bm_error_string.argtypes = [ctypes.c_int]
+                ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32,
+                ptr]
+            lib.stereo_bm_launch_batched.restype = i32
+            for name in ("num_disp", "radius", "tile_rows", "tile_cols",
+                         "smem_bytes"):
+                getattr(lib, f"stereo_bm_{name}").argtypes = []
+                getattr(lib, f"stereo_bm_{name}").restype = i32
+            lib.stereo_bm_error_string.argtypes = [i32]
             lib.stereo_bm_error_string.restype = ctypes.c_char_p
-            if lib.stereo_bm_num_disp() != num_disp:
-                raise RuntimeError(f"{lib._name} was built for "
-                                   f"{lib.stereo_bm_num_disp()} disparities")
+            built = (lib.stereo_bm_num_disp(), lib.stereo_bm_radius(),
+                     (lib.stereo_bm_tile_rows(), lib.stereo_bm_tile_cols()),
+                     lib.stereo_bm_smem_bytes())
+            want = (num_disp, KERNEL_RADIUS, tile_shape(num_disp),
+                    _smem_bytes(num_disp))
+            if built != want:
+                raise RuntimeError(f"{lib._name} was built for (D, radius, "
+                                   f"tile, smem) {built}, expected {want}")
             cls.libs[num_disp] = lib
+            cls.logs[num_disp] = so.with_suffix(".log")
             cls.build_seconds[num_disp] = time.perf_counter() - t0
         return cls.libs[num_disp]
 
@@ -241,58 +281,59 @@ def _check_cuda_inputs(lf, rf, ndim, num_disp, radius):
         raise ValueError("left/right shape or device mismatch")
     if num_disp not in SUPPORTED_NUM_DISP:
         raise ValueError(f"num_disp {num_disp} not in {SUPPORTED_NUM_DISP}")
+    if radius != KERNEL_RADIUS:
+        raise ValueError(f"the CUDA kernel is built for radius "
+                         f"{KERNEL_RADIUS}, got {radius}")
+    smem = _smem_bytes(num_disp)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"num_disp {num_disp} needs {smem} B of shared "
+                         f"memory per block (limit {_SMEM_LIMIT})")
     b, h, w = (1, *lf.shape) if ndim == 2 else lf.shape
-    smem = (2 * (2 * radius + 1) + 3) * w * 4
-    if smem > _SMEM_LIMIT or radius < 1 or h < 1:
-        raise ValueError(f"shape {tuple(lf.shape)} / radius {radius} needs "
-                         f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    if h < 1 or w < 1 or h * w >= 2 ** 31:
+        raise ValueError(f"image shape {(h, w)} outside 1 <= H*W < 2^31")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} outside the grid's 1..65535")
     return b, h, w
 
 
-def _raise_on(lib, err):
+def _launch(lf, rf, b, h, w, num_disp, radius, uniqueness_ratio,
+            texture_threshold):
+    """Both kernels on prefiltered, contiguous (B, H, W) images; the
+    scratch is allocated here and the keys start at ~0 (no candidate)."""
+    out = torch.empty_like(lf)
+    best = torch.empty(lf.shape, dtype=torch.int32, device=lf.device)
+    rkey = torch.full(lf.shape, -1, dtype=torch.int64, device=lf.device)
+    lib = _Kernel.load(num_disp)
+    with torch.cuda.device(lf.device):
+        stream = torch.cuda.current_stream(lf.device).cuda_stream
+        err = lib.stereo_bm_launch_batched(
+            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), best.data_ptr(),
+            rkey.data_ptr(), b, h, w, num_disp, radius,
+            float(uniqueness_ratio), float(texture_threshold), stream)
     if err != 0:
         raise RuntimeError("stereo_bm kernel launch failed: "
                            + lib.stereo_bm_error_string(err).decode())
+    return out
 
 
 def bm_cuda(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
             radius: int = 5, uniqueness_ratio: float = 1.10,
             texture_threshold: float = 0.01) -> torch.Tensor:
-    """Launch the CUDA kernel on prefiltered (H, W) images (no counting:
-    the dispatcher counts)."""
+    """Run the CUDA kernels on prefiltered (H, W) images: B = 1 of the
+    batched grid (no counting: the dispatcher counts)."""
     _, h, w = _check_cuda_inputs(lf, rf, 2, num_disp, radius)
-    lf = lf.contiguous()
-    rf = rf.contiguous()
-    out = torch.empty_like(lf)
-    lib = _Kernel.load(num_disp)
-    with torch.cuda.device(lf.device):
-        stream = torch.cuda.current_stream(lf.device).cuda_stream
-        err = lib.stereo_bm_launch(
-            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), h, w, num_disp,
-            radius, float(uniqueness_ratio), float(texture_threshold), stream)
-    _raise_on(lib, err)
-    return out
+    return _launch(lf.contiguous()[None], rf.contiguous()[None], 1, h, w,
+                   num_disp, radius, uniqueness_ratio, texture_threshold)[0]
 
 
 def bm_cuda_batched(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
                     radius: int = 5, uniqueness_ratio: float = 1.10,
                     texture_threshold: float = 0.01) -> torch.Tensor:
-    """Launch the CUDA kernel once on prefiltered (B, H, W) images, all B
+    """Run the CUDA kernels once on prefiltered (B, H, W) images, all B
     streams in one grid (no counting: the dispatcher counts)."""
     b, h, w = _check_cuda_inputs(lf, rf, 3, num_disp, radius)
-    lf = lf.contiguous()
-    rf = rf.contiguous()
-    out = torch.empty_like(lf)
-    lib = _Kernel.load(num_disp)
-    with torch.cuda.device(lf.device):
-        stream = torch.cuda.current_stream(lf.device).cuda_stream
-        err = lib.stereo_bm_launch_batched(
-            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), b, h, w, num_disp,
-            radius, float(uniqueness_ratio), float(texture_threshold), stream)
-    _raise_on(lib, err)
-    return out
+    return _launch(lf.contiguous(), rf.contiguous(), b, h, w, num_disp,
+                   radius, uniqueness_ratio, texture_threshold)
 
 
 def block_matching_disparity_bm(

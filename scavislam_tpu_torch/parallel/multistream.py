@@ -12,7 +12,7 @@ H100: the stream axis is a leading batch dimension, and a mesh is refused
 - :func:`build_multistream_step`: that core behind the twin's builder;
 - :func:`build_multistream_frontend`: the full per-frame frontend step over
   B streams. On a CUDA device the disparity of all B streams comes from ONE
-  launch of the batched block-matching kernel; each stream's step then runs
+  call of the batched block-matching kernels; each stream's step then runs
   on that external disparity. The per-stream stages run as a loop over the
   streams: vmap's semantics are independent streams, and a loop keeps them
   exactly.
@@ -148,7 +148,7 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
     Stereo routes (`stereo`; None picks by the frames' device):
     - "kernel" (default on a CUDA device): uint8 -> f32, the 3x3 binomial
       sensor-noise prefilter per stream, then ONE batched block-matching
-      launch for all B streams; each stream's step runs on that external
+      call for all B streams; each stream's step runs on that external
       disparity, so it computes what a single-stream step computes at
       stereo method 2. (The twin hands the RAW frames to its batched TPU
       kernel, skipping the prefilter its single-stream step applies; the

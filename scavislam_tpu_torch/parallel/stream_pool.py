@@ -13,7 +13,7 @@ Division of labour per tick (B streams, one frame each):
                                                      upload (none when the
                                                      frames are on the card)
   device: ONE batched step (all B streams; on a card ONE batched
-          block-matching launch)                  -> chained pose state
+          block-matching call)                    -> chained pose state
   host:   ONE (B, K) packed fetch, consumed `pipeline_depth` ticks later:
           per-stream keyframe policy on each row; a stream that decides a
           keyframe dispatches its own spawn step against its OWN tables,
@@ -34,6 +34,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.models.frontend import (
     CAND_CAP,
@@ -109,8 +110,7 @@ class StreamPool:
         self.cfg = cfg or Config()
         self.B = int(n_streams)
         self.mesh = mesh
-        self.device = (torch.device(device) if device is not None
-                       else torch.device("cpu"))
+        self.device = resolve_device(device)
         self.fes = [StereoFrontend(cam, self.cfg, device=self.device)
                     for _ in range(self.B)]
         # pool streams track at the reference's own CPU density (every 4th

@@ -42,7 +42,7 @@ def pair(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_disp", [32, 64])
+@pytest.mark.parametrize("num_disp", [16, 32, 64, 128])
 def test_kernel_matches_plain_on_card(pair, num_disp):
     # same summation order and --fmad=false: bit-for-bit
     left, right = pair
@@ -53,6 +53,22 @@ def test_kernel_matches_plain_on_card(pair, num_disp):
     torch.cuda.synchronize()
     assert (dk > 0).float().mean() > 0.3
     assert torch.equal(dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(190, 256), (192, 250), (190, 237)])
+def test_kernel_matches_plain_ragged_tiles(pair, shape):
+    # H - 10 not a multiple of the tile's rows, W not one of its columns
+    h, w = shape
+    left, right = (x[:h, :w].contiguous() for x in pair)
+    lf = _sobel_x_prefilter(binomial3(left))
+    rf = _sobel_x_prefilter(binomial3(right))
+    dk = stereo_bm.bm_cuda(lf, rf, num_disp=64, radius=5)
+    dp = stereo_bm.bm_plain(lf, rf, num_disp=64, radius=5)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    with pytest.raises(ValueError, match="radius"):
+        stereo_bm.bm_cuda(lf, rf, num_disp=64, radius=4)
 
 
 @pytest.mark.cuda
@@ -86,7 +102,18 @@ def test_batched_kernel_matches_plain_and_single(stream_pairs, num_disp,
                                                  height):
     # the stream only offsets the planes: bit-for-bit the plain version and
     # the single-image kernel of each stream, at any H
-    lf, rf = (x[:, :height].contiguous() for x in stream_pairs)
+    _batched_matches(stream_pairs, num_disp, height, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_disp", [16, 128])
+def test_batched_kernel_ragged(stream_pairs, num_disp):
+    # B = 3 at H = 190, W = 250: partial tiles on both axes
+    _batched_matches(stream_pairs, num_disp, 190, 250)
+
+
+def _batched_matches(stream_pairs, num_disp, height, width):
+    lf, rf = (x[:, :height, :width].contiguous() for x in stream_pairs)
     db = stereo_bm.bm_cuda_batched(lf, rf, num_disp=num_disp, radius=5)
     dp = stereo_bm.bm_plain_batched(lf, rf, num_disp=num_disp, radius=5)
     d1 = torch.stack([stereo_bm.bm_cuda(lf[b], rf[b], num_disp=num_disp,
@@ -95,6 +122,16 @@ def test_batched_kernel_matches_plain_and_single(stream_pairs, num_disp,
     assert (db > 0).float().mean() > 0.3
     assert torch.equal(db, dp)
     assert torch.equal(db, d1)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_card(cuda_device):
+    fe = StereoFrontend(CAM, Config())
+    pool = StreamPool(CAM, Config(), n_streams=2)
+    seq = SyntheticSequence(CAM, n_frames=1)
+    for obj in (fe, pool, seq):
+        assert obj.device.type == "cuda"
+    assert seq.frame(0)["left"].is_cuda
 
 
 @pytest.mark.cuda

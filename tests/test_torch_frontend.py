@@ -28,6 +28,7 @@ T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
                        J_CAM.size, np.asarray(J_CAM.baseline))
 N_FRAMES = 8
 SNAP_FRAME = 4  # the frame whose single step is compared
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,7 +118,7 @@ def jax_run(frames):
 
 
 def _run_port(frames, method, as_tensors=False):
-    fe = TFrontend(T_CAM, _cfg(TConfig, method))
+    fe = TFrontend(T_CAM, _cfg(TConfig, method), device=CPU)
     conv = ((lambda f: {k: torch.as_tensor(v) if k != "frame_id" else v
                         for k, v in _host(f).items()})
             if as_tensors else _host)
@@ -144,7 +145,7 @@ def test_frontend_step_parity(frames, jax_run):
     # within 2 and the gate masks on >= 99% of the candidate slots (a
     # borderline ZMSSD or reprojection test can fall either way).
     s = jax_run["snap"]
-    fe = TFrontend(T_CAM, _cfg(TConfig, 1))
+    fe = TFrontend(T_CAM, _cfg(TConfig, 1), device=CPU)
     interop.load_frontend_state(
         fe, poses=interop.pose_table(*s["poses"]),
         points=interop.point_table(*s["points"]),
@@ -198,7 +199,7 @@ def test_external_disparity_path(frames):
     # the ground-truth disparity handed in as a third plane replaces the
     # stereo stage; tracking then stays within the JAX VO test's bar
     seq = SyntheticSequence(J_CAM, n_frames=4)
-    fe = TFrontend(T_CAM, TConfig())
+    fe = TFrontend(T_CAM, TConfig(), device=CPU)
     est = []
     for i in range(4):
         f = dict(_host(frames[i]), disp_gt=np.array(seq.frame(i)["disp_gt"]),
@@ -224,7 +225,7 @@ def test_map_and_packets(port_run):
 
 def test_tracking_failure_reported(frames):
     # a black frame: no corners, no matches -> failure, no crash
-    fe = TFrontend(T_CAM, TConfig())
+    fe = TFrontend(T_CAM, TConfig(), device=CPU)
     fe.process_first_frame(_host(frames[0]))
     blank = {"frame_id": 1, "left": np.zeros_like(frames[0]["left"]),
              "right": np.zeros_like(frames[0]["right"])}
@@ -235,9 +236,9 @@ def test_tracking_failure_reported(frames):
 def test_unported_options_raise():
     cfg = TConfig()
     with pytest.raises(NotImplementedError, match="rectif"):
-        TFrontend(T_CAM, dataclasses.replace(
-            cfg, framepipe=dataclasses.replace(cfg.framepipe, rectify_frame=True)))
-    fe = TFrontend(T_CAM, _cfg(TConfig, 3))
+        TFrontend(T_CAM, dataclasses.replace(cfg, framepipe=dataclasses.replace(
+            cfg.framepipe, rectify_frame=True)), device=CPU)
+    fe = TFrontend(T_CAM, _cfg(TConfig, 3), device=CPU)
     img = np.zeros((192, 256), np.float32)
     with pytest.raises(NotImplementedError, match="BP/CSBP"):
         fe.process_first_frame({"frame_id": 0, "left": img, "right": img})

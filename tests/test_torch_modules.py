@@ -41,6 +41,7 @@ from scavislam_tpu_torch.ops import stereo as tstereo
 # the 256x192 camera the JAX VO tests use
 J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 T_CAM = TCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -302,7 +303,8 @@ def test_renderer_matches(kind, i):
     planes_t = tsyn.closed_box() if kind == "wander" else None
     step = 0.06 if kind == "wander" else 0.02
     a = jsyn.SyntheticSequence(J_CAM, 8, kind, planes_j, step).frame(i)
-    b = tsyn.SyntheticSequence(T_CAM, 8, kind, planes_t, step).frame(i)
+    b = tsyn.SyntheticSequence(T_CAM, 8, kind, planes_t, step,
+                               device=CPU).frame(i)
     np.testing.assert_allclose(_n(b["disp_gt"]), np.asarray(a["disp_gt"]), atol=1e-5)
     np.testing.assert_allclose(_n(b["T_cw_gt"].t), np.asarray(a["T_cw_gt"].t), atol=1e-6)
     for k in ("left", "right"):

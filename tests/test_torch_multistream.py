@@ -48,6 +48,7 @@ T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
                        J_CAM.size, np.asarray(J_CAM.baseline))
 CAM_PARAMS = (195.0, 127.0, 95.0, 0.12)
 B = 2
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -224,7 +225,7 @@ def test_mesh_and_bad_route_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         build_multistream_step(object(), CAM_PARAMS)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        StreamPool(T_CAM, n_streams=2, mesh=object())
+        StreamPool(T_CAM, n_streams=2, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="stereo"):
         build_multistream_frontend(None, cam_params, cam_statics,
                                    stereo="bp")

@@ -30,6 +30,7 @@ J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
                        J_CAM.size, np.asarray(J_CAM.baseline))
 N_FRAMES = 8
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,7 +111,7 @@ def test_pipelined_vo_matches_jax(frames):
     fj._fetch_pool = _InlineExecutor()
     fj.pipeline_depth = 2
     cj, pj, kj = _run_pipelined(fj, frames)
-    ft = TFrontend(T_CAM, _cfg(TConfig, 1))
+    ft = TFrontend(T_CAM, _cfg(TConfig, 1), device=CPU)
     ft.pipeline_depth = 2
     ct, pt, kt = _run_pipelined(ft, frames)
     assert ct == cj == list(range(N_FRAMES))
@@ -130,13 +131,13 @@ def test_pipelined_matches_sync(frames):
     # the port's pipelined run tracks the same trajectory as its synchronous
     # run at the default stereo method (tests/test_frontend_vo.py:81-105:
     # every pose within 5e-3 in the SE3 log)
-    sync = TFrontend(T_CAM, TConfig())
+    sync = TFrontend(T_CAM, TConfig(), device=CPU)
     sync.process_first_frame(frames[0])
     ps = {0: sync._world_pose()}
     for f in frames[1:]:
         assert sync.process_frame(dict(f))[0]
         ps[f["frame_id"]] = sync._world_pose()
-    pipe = TFrontend(T_CAM, TConfig())
+    pipe = TFrontend(T_CAM, TConfig(), device=CPU)
     _, pp, _ = _run_pipelined(pipe, frames)
     assert len(set(ps) & set(pp)) >= 6
     for fid in set(ps) & set(pp):
@@ -149,7 +150,7 @@ class TestEffectiveDepth:
     policy (tests/test_frontend_vo.py:108-154)."""
 
     def _fe(self, depth):
-        fe = TFrontend(T_CAM, TConfig())
+        fe = TFrontend(T_CAM, TConfig(), device=CPU)
         fe.pipeline_depth = depth
         return fe
 

@@ -27,6 +27,7 @@ J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
                        J_CAM.size, np.asarray(J_CAM.baseline))
 N_FRAMES, B = 14, 2
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,14 +55,16 @@ def pool_run():
     cfg = Config()
     cfg = dataclasses.replace(cfg, ui=dataclasses.replace(cfg.ui, parallax_thr=0.1))
     seqs = [SyntheticSequence(T_CAM, n_frames=N_FRAMES, step=0.02,
-                              planes=default_room() if s == 0 else varied_box(1))
+                              planes=default_room() if s == 0 else varied_box(1),
+                              device=CPU)
             for s in range(B)]
     ticks = [[{"frame_id": i, "left": f["left"].numpy(),
                "right": f["right"].numpy()}
               for f in (q.frame(i) for q in seqs)] for i in range(N_FRAMES)]
     batched = stereo_bm.block_matching_disparity_bm_batched.launches
     single = stereo_bm.block_matching_disparity_bm.launches
-    pool = StreamPool(T_CAM, cfg, n_streams=B, pipeline_depth=2)
+    pool = StreamPool(T_CAM, cfg, n_streams=B, pipeline_depth=2,
+                      device=CPU)
     pool.timing_log = []
     first = pool.process_first_frames(ticks[0])
     results = [pool.process_frames(t) for t in ticks[1:]]
@@ -122,7 +125,8 @@ def test_varied_box_matches_jax():
             assert float(np.asarray(a.tex_phase)) == b.tex_phase
             np.testing.assert_array_equal(np.asarray(a.normal), b.normal)
     jf = jsyn.SyntheticSequence(J_CAM, n_frames=4, planes=jsyn.varied_box(3)).frame(3)
-    tf = SyntheticSequence(T_CAM, n_frames=4, planes=varied_box(3)).frame(3)
+    tf = SyntheticSequence(T_CAM, n_frames=4, planes=varied_box(3),
+                           device=CPU).frame(3)
     np.testing.assert_allclose(tf["disp_gt"].numpy(), np.asarray(jf["disp_gt"]),
                                atol=1e-5)
     assert varied_box(3) != varied_box(4)
