@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's stereo-VO paths once on one CUDA card: the
-synchronous and pipelined single-stream frontend and the 8-stream pool.
+"""Drive the PyTorch port's paths once on one CUDA card: the synchronous
+and pipelined single-stream frontend, the 8-stream pool, and the whole
+SlamSystem (frontend + backend) as the headline benchmark configures it.
 
 Run from the root of a checkout, with no arguments:
 
@@ -37,11 +38,25 @@ non-zero before the result line):
    timing-log split (dispatch / fetch wait / consume); every frame tracked,
    >= 2 keyframes, ATE < 0.05 m, one single-image launch per frame;
 7. pool    — StreamPool(8 streams, Config() defaults, depth 2), each stream
-   on its phase-5 scene along the wander at step 0.06, 512x384, 40 ticks:
+   on its phase-5 scene along the wander at step 0.06, 512x384, 24 ticks:
    aggregate frames/s, ms per tick and its split, keyframes per stream;
-   every stream alive with 40 trajectory entries, >= 2 keyframes and
+   every stream alive with 24 trajectory entries, >= 2 keyframes and
    ATE < 0.05 m each; one batched launch per tick dispatched and no
-   single-image launch.
+   single-image launch;
+8. system  — SlamSystem(threaded, pipelined at depth 3, loop closure off,
+   Config() defaults) on phase 4's 80 frames after one warm-up run:
+   frames/s over frames 2..79, keyframes, graph vertices, solves adopted and
+   their median device ms (dispatch event to download event), the
+   backend's counters, neighborhoods adopted, ATE and kernel launches;
+   every frame tracked, vertices == keyframes after finish(), a solve
+   adopted with chi2_final <= chi2_init, ATE < 0.05 m, one single-image
+   launch per frame. Then the same frames unthreaded and synchronous (the
+   deterministic mode) with the same numbers and checks. Last, solve_ba
+   alone on the threaded run's last packed problem at the full capacities
+   (P, L, O, E) = (128, 2048, 8192, 512), captured as a CUDA graph: median
+   of 25 replays with CUDA events, and each stage of one LM round (normal
+   equations, Schur product, Cholesky plus back-substitution) the same
+   way; the eager call's wall time beside.
 
 After the phases, the device time of each kernel of one single-image call
 (torch.profiler; last, so that its tracing cannot slow the timed phases).
@@ -65,7 +80,7 @@ REPLACES = "scavislam_tpu/ops/stereo_pallas.py:254"
 REPLACES_BATCHED = "scavislam_tpu/ops/stereo_pallas.py:322"
 N_FRAMES = 80
 N_STREAMS = 8
-N_TICKS = 40
+N_TICKS = 24  # cut from 40 when phase 8 came, to keep the script's time
 TIMING_RUNS = 25
 ATE_MAX = 0.05
 # the bound: each cost entry (pixel x disparity) needs |L - R|, 10
@@ -157,6 +172,170 @@ def _ate(est, gt):
         errs.append(Te.R @ (-Rg.T @ tg) + Te.t)  # translation of Te @ Tg^-1
     errs = np.stack(errs)
     return float(np.sqrt((errs ** 2).sum(axis=1).mean()))
+
+
+# The JAX package's unthreaded SlamSystem on these 80 frames at 512x384, run
+# on a CPU: printed beside the card's numbers, unchecked. Not measured: the
+# parity runs on a CPU are the 256x192 ones of tests/test_torch_slam_system.py.
+JAX_CPU_REFERENCE = "not measured"
+
+
+def _run_system(cam, cfg, dev, frames, threaded, pipelined):
+    """One SlamSystem run over `frames` (bench.py's headline configuration
+    when threaded and pipelined). Returns its numbers."""
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+    system = SlamSystem(cam, cfg, threaded=threaded, enable_loop_closure=False,
+                        pipelined=pipelined,
+                        pipeline_depth=3 if pipelined else None, device=dev)
+    fe = system.frontend
+    adopted = [0]
+    apply_nb = fe.apply_neighborhood
+
+    def counting_apply(nb):
+        ok = apply_nb(nb)
+        adopted[0] += bool(ok)
+        return ok
+
+    fe.apply_neighborhood = counting_apply
+    fe.timing_log = [] if pipelined else None
+    failed = None
+    try:
+        system.process_first_frame(frames[0])
+        ok = system.process_frame(frames[1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for f in frames[2:]:
+            if not ok:
+                failed = f["frame_id"] - 1
+                break
+            ok = system.process_frame(f)
+        system._flush_frontend()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        system.finish()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        system.shutdown()
+    if not ok and failed is None:
+        failed = frames[-1]["frame_id"]
+    g = system.backend.graph
+    traj = sorted(system.trajectory, key=lambda e: e[0])
+    gt = {f["frame_id"]: f["T_cw_gt"] for f in frames}
+    ate = _ate([T for _, T in traj], [gt[i] for i, _ in traj])
+    solve_ms = [ms for _, ms in g.solve_log]
+    return {
+        "system": system, "failed": failed, "tracked": len(traj),
+        "frames": len(frames), "fps": (len(frames) - 2) / (t2 - t1),
+        "drain_s": t3 - t2, "keyframes": fe.next_kf,
+        "vertices": len(g.vertices), "solves": len(solve_ms),
+        "solve_ms_median": float(np.median(solve_ms)) if solve_ms else None,
+        "chi2": (g.stats["chi2_init"], g.stats["chi2_final"]),
+        "counters": dict(sorted(system.backend.counters.items())),
+        "adopted": adopted[0], "ate": ate,
+        "split": (np.asarray([x[1:] for x in fe.timing_log]).mean(0) * 1e3
+                  if fe.timing_log else None),
+    }
+
+
+def _check_system(name, r, launches, batched_launches):
+    ms = r["solve_ms_median"]
+    print(f"{name}: {r['tracked']}/{r['frames']} frames tracked, "
+          f"{r['keyframes']} keyframes, {r['vertices']} graph vertices, "
+          f"{r['solves']} solves adopted (median "
+          f"{'none' if ms is None else f'{ms:.3f}'} device ms, last chi2 "
+          f"{r['chi2'][0]:.3f} -> {r['chi2'][1]:.3f}), counters "
+          f"{r['counters']}, neighborhoods adopted {r['adopted']}, ATE "
+          f"{r['ate']:.5f} m, {r['fps']:.2f} frames/s over frames 2.."
+          f"{r['frames'] - 1} (finish drain {1000 * r['drain_s']:.1f} ms), "
+          f"kernel launches {launches} for {r['frames']} frames dispatched, "
+          f"batched launches {batched_launches}"
+          + ("" if r["split"] is None else
+             "; per frame ms dispatch {:.2f} fetch wait {:.3f} consume "
+             "{:.2f}".format(*r["split"])), flush=True)
+    if r["failed"] is not None or r["tracked"] != r["frames"]:
+        _fail(f"{name}: tracking failed at frame {r['failed']}")
+    if r["vertices"] != r["keyframes"]:
+        _fail(f"{name}: graph vertices {r['vertices']} != keyframes "
+              f"{r['keyframes']}")
+    if r["solves"] < 1 or not r["chi2"][1] <= r["chi2"][0]:
+        _fail(f"{name}: no solve adopted with chi2_final <= chi2_init")
+    if not r["ate"] < ATE_MAX:
+        _fail(f"{name}: ATE {r['ate']} m")
+    if launches != r["frames"] or batched_launches != 0:
+        _fail(f"{name}: kernel launches {launches} != {r['frames']} frames")
+
+
+def _graph_of(fn):
+    """fn captured as a CUDA graph (after a warm-up on a side stream, as
+    torch.cuda.graphs asks): (graph, outputs of the captured call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _time_solve(graph):
+    """solve_ba alone on the graph's last packed problem. Eagerly the host
+    enqueues ~600 small launches per solve and the card waits on it, so the
+    device time is taken from the solve captured as a CUDA graph and
+    replayed: median ms of 25 replays (CUDA events), and the same for each
+    stage of one LM round (normal equations, Schur product, Cholesky plus
+    back-substitution) captured alone; the eager call's wall time beside."""
+    from scavislam_tpu_torch.models import ba_solver as B
+    from scavislam_tpu_torch.models.slam_graph import _unpack_problem
+    if graph.last_problem is None:
+        _fail("solve: no problem was dispatched")
+    cam_params, buf, caps = graph.last_problem
+    prob, aperm = _unpack_problem(buf, caps)
+    n_obs = int(prob.obs_valid.sum())
+    n_pts = int(prob.point_valid.sum())
+    n_poses = int(prob.pose_valid.sum())
+
+    def solve():
+        return B.solve_ba(cam_params, prob, iters=2, huber=3.0,
+                          anchor_perm=aperm)
+
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    g_solve, out = _graph_of(solve)
+    ms = _cuda_ms(g_solve.replay, TIMING_RUNS)
+    if not float(out[3].chi2_final) <= float(out[3].chi2_initial):
+        _fail("solve: the captured solve raised chi2")
+    free = (prob.pose_valid & ~prob.pose_fixed).to(torch.float32)
+    lam = torch.full((), 50.0, device=buf.device)
+    lin = B._linearize(cam_params, prob, prob.R, prob.t, prob.psi, lam, free,
+                       3.0, aperm, None)
+    sch = B._schur(*lin, lam, free)
+    stages = {
+        "normal equations": lambda: B._linearize(
+            cam_params, prob, prob.R, prob.t, prob.psi, lam, free, 3.0,
+            aperm, None),
+        "Schur product": lambda: B._schur(*lin, lam, free),
+        "Cholesky + back-substitution": lambda: B._factor_solve(
+            *sch, lin[1], lin[2], lin[4], free, prob.point_valid),
+    }
+    split = {k: _cuda_ms(_graph_of(f)[0].replay, TIMING_RUNS)
+             for k, f in stages.items()}
+    print(f"solve: solve_ba at caps (P, L, O, E) = {caps}, 2 LM rounds, "
+          f"{n_poses} poses, {n_pts} points, {n_obs} observations: median "
+          f"{ms:.3f} device ms over {TIMING_RUNS} replays of the solve "
+          f"captured as a CUDA graph (eager, host-bound: "
+          f"{float(np.median(walls)):.2f} ms wall); per LM round (median of "
+          f"{TIMING_RUNS} graph replays each): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; last chi2 {float(out[3].chi2_initial):.3f} -> "
+          f"{float(out[3].chi2_final):.3f}", flush=True)
 
 
 def _scenes(n):
@@ -417,6 +596,25 @@ def main():
     if launches_b != N_TICKS or launches_1 != 0:
         _fail(f"pool: batched launches {launches_b} != {N_TICKS} ticks or "
               f"single-image launches {launches_1} != 0")
+
+    # -- 8. the system: frontend + backend, bench.py's headline configuration
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    _run_system(cam, cfg, dev, frames[:12], threaded=True, pipelined=True)
+    torch.cuda.synchronize()
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    sys_t = _run_system(cam, cfg, dev, frames, threaded=True, pipelined=True)
+    launches_s = stereo_bm.block_matching_disparity_bm.launches
+    _check_system("system threaded pipelined", sys_t, launches_s,
+                  stereo_bm.block_matching_disparity_bm_batched.launches)
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    sys_u = _run_system(cam, cfg, dev, frames, threaded=False,
+                        pipelined=False)
+    _check_system("system unthreaded sync", sys_u,
+                  stereo_bm.block_matching_disparity_bm.launches, 0)
+    print("system: JAX on the CPU for the unthreaded run at this size: "
+          f"{JAX_CPU_REFERENCE}", flush=True)
+    _time_solve(sys_t["system"].backend.graph)
 
     try:
         dev_us = _kernel_device_us(

@@ -10,7 +10,7 @@ Everything is shape-polymorphic over leading batch dims. Near ``theta -> 0``
 the f32 Taylor branches cover a WIDE neighbourhood (theta^2 < 0.04): in f32,
 1 - cos(theta) cancels catastrophically up to theta ~ 0.1.
 
-Sim3 and ``umeyama_sim3`` are not ported yet (mono slice).
+Sim3 is not ported yet (mono slice).
 """
 
 from __future__ import annotations
@@ -192,6 +192,24 @@ class SE3(NamedTuple):
         return SE3(Rt, -_mv(Rt, self.t))
 
 
+def lie_bracket_se3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """se(3) Lie bracket [a, b] for 6-vectors [ups, omega]."""
+    au, aw = a[..., :3], a[..., 3:]
+    bu, bw = b[..., :3], b[..., 3:]
+    return torch.cat(
+        [torch.linalg.cross(aw, bu) + torch.linalg.cross(au, bw),
+         torch.linalg.cross(aw, bw)], dim=-1)
+
+
+def ad_se3(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 6, 6) adjoint of a tangent vector: ad(xi) @ y = [xi, y]."""
+    ups, omega = xi[..., :3], xi[..., 3:]
+    Ou, Ow = hat(ups), hat(omega)
+    top = torch.cat([Ow, Ou], dim=-1)
+    bot = torch.cat([torch.zeros_like(Ow), Ow], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
 def se3_exp_host(xi: np.ndarray):
     """SE3.exp of ONE tangent vector on the host, in numpy float32: the same
     formula and Taylor branches, without a device round trip. Used by the LM
@@ -257,3 +275,21 @@ def _to_np64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, np.float64)
+
+
+def umeyama_sim3(A: np.ndarray, B: np.ndarray, with_scale: bool = True):
+    """Closed-form least-squares similarity with B ~ s R A + t over all rows
+    (Umeyama 1991), in host numpy. Returns (s, R, t)."""
+    mu_a, mu_b = A.mean(0), B.mean(0)
+    Ac, Bc = A - mu_a, B - mu_b
+    C = Bc.T @ Ac / len(A)
+    U, D, Vt = np.linalg.svd(C)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    var_a = (Ac ** 2).sum() / len(A)
+    s = (float(np.trace(np.diag(D) @ S) / max(var_a, 1e-12))
+         if with_scale else 1.0)
+    t = mu_b - s * R @ mu_a
+    return s, R.astype(np.float32), t.astype(np.float32)

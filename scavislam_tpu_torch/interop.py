@@ -14,7 +14,14 @@ import numpy as np
 import torch
 
 from scavislam_tpu_torch.core.camera import StereoCamera
+from scavislam_tpu_torch.models.ba_solver import BAProblem
 from scavislam_tpu_torch.models.map_store import PointTable, PoseTable
+from scavislam_tpu_torch.models.slam_graph import (
+    FeatureTable,
+    GraphEdge,
+    GraphPoint,
+    GraphVertex,
+)
 
 
 def tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -85,3 +92,51 @@ def load_frontend_state(fe, *, poses, points, dense, R_cw, t_cw, R_cak, t_cak,
     fe.frame_id = int(frame_id)
     fe._cand_np = None
     return fe
+
+
+_BA_DTYPES = {
+    "anchor_slot": torch.int32, "obs_pose": torch.int32,
+    "obs_point": torch.int32, "edge_i": torch.int32, "edge_j": torch.int32,
+    "pose_valid": torch.bool, "pose_fixed": torch.bool,
+    "point_valid": torch.bool, "obs_valid": torch.bool,
+    "edge_valid": torch.bool,
+}
+
+
+def ba_problem(device=None, **fields) -> BAProblem:
+    """The port's BAProblem from the twin's fields as numpy arrays (every
+    field of models.ba_solver.BAProblem, by name)."""
+    return BAProblem(**{
+        k: tensor(fields[k], device, _BA_DTYPES.get(k, torch.float32))
+        for k in BAProblem._fields})
+
+
+def load_graph_state(graph, vertices, points, edges, double_window,
+                     active_points, outer_points):
+    """Copy a twin SlamGraph's host state (its `vertices`, `points`,
+    `edges`, `double_window`, `active_points` and `outer_points`, all numpy
+    and dicts) into a port SlamGraph, keeping every container's order (the
+    BA slots follow it), so that the same `optimize` runs side by side."""
+    graph.vertices = {}
+    for k, v in vertices.items():
+        ft = FeatureTable()
+        for pid, (uvu, lvl) in v.feature_table.items():
+            ft[pid] = (np.array(uvu, np.float64), int(lvl))
+        graph.vertices[k] = GraphVertex(
+            int(v.own_id), np.array(v.R, np.float64),
+            np.array(v.t, np.float64), ft, dict(v.neighbor_strengths))
+    graph.points = {
+        k: GraphPoint(int(p.own_id), np.array(p.psi, np.float64),
+                      int(p.anchor_id), int(p.level), set(p.vis_set))
+        for k, p in points.items()}
+    graph.edges = {
+        k: GraphEdge(
+            e.id1, e.id2, e.strength, e.edge_type,
+            None if e.R_1_from_2 is None else np.array(e.R_1_from_2),
+            None if e.t_1_from_2 is None else np.array(e.t_1_from_2),
+            None if e.Lambda is None else np.array(e.Lambda))
+        for k, e in edges.items()}
+    graph.double_window = dict(double_window)
+    graph.active_points = set(active_points)
+    graph.outer_points = set(outer_points)
+    return graph

@@ -20,8 +20,14 @@ is deferred to a later consume). The step's two LMs read their stop flags
 on the host once per iteration, so on a card the dispatch itself waits for
 the device and pipelining overlaps little beyond the fetch.
 
-Not ported yet: ``apply_neighborhood`` (neighborhood adoption from the
-backend) and ``reseed`` (relocalization), ``pr_vocab`` and ``draw_data``.
+Backend feedback: ``apply_neighborhood`` adopts a backend-optimized
+neighborhood (host mirrors at once; the device pose/psi writes as ONE packed
+upload and ONE fused scatter at the top of the next frame step) and rebases
+the in-flight pipelined frames by a right-multiplied correction. Each
+finalized keyframe packet carries a CUDA event (``ready_event``) recorded on
+the frontend's stream, which the backend's stream waits on.
+
+Not ported yet: ``pr_vocab`` (waits for loop closure) and ``draw_data``.
 Rectification is not ported: a config with ``framepipe.rectify_frame`` set
 is refused.
 """
@@ -52,8 +58,13 @@ from scavislam_tpu_torch.models.map_store import (
     MAX_POINTS,
     PointTable,
     PoseTable,
+    scatter_psi,
 )
 from scavislam_tpu_torch.utils.config import Config
+
+# fixed scatter capacities of the neighborhood adoption: one shape per site
+_POSE_SCATTER_CAP = 128
+_PSI_SCATTER_CAP = 8192
 
 CAND_CAP = 768  # candidate points considered per frame
 NEW_PER_LEVEL = (320, 96, 32)  # new points per keyframe per level
@@ -68,25 +79,26 @@ class Fetch:
     """A device->host copy of one tensor in flight, with a future's
     ``done()``/``result()``. On a CUDA device: a non-blocking copy into a
     pinned host buffer and a CUDA event recorded behind it on the current
-    stream; ``done()`` queries the event, ``result()`` waits for it and
-    returns the numpy view. On the CPU the copy is complete at once."""
+    stream (a timing event when ``timed``); ``done()`` queries the event,
+    ``result()`` waits for it and returns the numpy view. On the CPU the
+    copy is complete at once."""
 
-    def __init__(self, x: torch.Tensor):
-        self._event = None
+    def __init__(self, x: torch.Tensor, timed: bool = False):
+        self.event = None
         if x.is_cuda:
             self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             self._host.copy_(x, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(x.device))
+            self.event = torch.cuda.Event(enable_timing=timed)
+            self.event.record(torch.cuda.current_stream(x.device))
         else:
             self._host = x.detach()
 
     def done(self) -> bool:
-        return self._event is None or self._event.query()
+        return self.event is None or self.event.query()
 
     def result(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        if self.event is not None:
+            self.event.synchronize()
         return self._host.numpy()
 
 
@@ -112,6 +124,9 @@ class AddToOptimizer:
     points_snapshot: object = None
     poses_snapshot: object = None
     pr_packed: np.ndarray = None  # place-recognition block (not ported yet)
+    # CUDA event recorded on the frontend's stream when the packet was
+    # finalized; the backend's stream waits on it (None on the CPU)
+    ready_event: object = None
 
 
 class StereoFrontend:
@@ -140,7 +155,9 @@ class StereoFrontend:
         self.keyframe_map: dict[int, dict] = {}
         self.pose_np: dict[int, tuple] = {}  # host mirror of keyframe poses
         self.actkey_id = -1
+        self.neighborhood = None
         self.to_optimizer_stack: list[AddToOptimizer] = []
+        self.per_mon = None  # optional named-stage timer (set by SlamSystem)
         # when set to a list, process_frame_pipelined appends one
         # (frame_id, dispatch_s, fetch_wait_s, consume_s) tuple per frame
         self.timing_log = None
@@ -177,6 +194,9 @@ class StereoFrontend:
         self._dev_t_cw = None
         # finalized AddToOptimizer packets not yet handed to the system
         self._ready_packets = []
+        # neighborhood-adoption upload (apply_neighborhood) whose scatter
+        # applies at the top of the next frame step
+        self._nb_pending = None
 
         # pipelined mode. Deferred keyframe spawn: (rec, pkt_args) whose
         # payload fetch is in flight, finalized once it has landed
@@ -186,7 +206,9 @@ class StereoFrontend:
         # unvalidated is a genuine loss, not staleness
         self._rescue_pending = False
         # in-flight frames, each a list [frame_id, cand_ids, FrontendStepOut,
-        # Fetch, kf_epoch]
+        # Fetch, corr_R, corr_t, kf_epoch] where (corr_R, corr_t)
+        # right-corrects the fetched world pose for backend rebases that
+        # happened after the frame was dispatched
         self._pending = deque()
         # keyframe generation counter: frames dispatched before a keyframe
         # spawn carry a stale candidate set whose statistics would
@@ -333,12 +355,23 @@ class StereoFrontend:
             np.zeros(0, np.int64), {},
             pyr=out.pyr, disp=out.disp,
             points_snapshot=self.points, poses_snapshot=self.poses,
+            ready_event=self._ready_event(),
         )
         self.to_optimizer_stack.append(pkt)
         return pkt
 
+    def _ready_event(self):
+        """A CUDA event behind everything the frontend enqueued so far on
+        its stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
     def process_frame(self, frame: dict):
         """Track one frame. Returns (success, dropped_new_keyframe)."""
+        self._apply_nb_pending(block=True)  # sync mode: no table lag
         self.frame_id = frame.get("frame_id", self.frame_id + 1)
         cand_ids = self._collect_candidates()
         out = self._run_step(frame, cand_ids)
@@ -396,11 +429,12 @@ class StereoFrontend:
         or None while the pipeline is still filling."""
         tlog = self.timing_log
         t_a = time.perf_counter() if tlog is not None else 0.0
+        self._apply_nb_pending()
         self.frame_id = frame.get("frame_id", self.frame_id + 1)
         cand_ids = self._collect_candidates()
         out = self._run_step(frame, cand_ids)
         self._pending.append([self.frame_id, cand_ids, out, Fetch(out.packed),
-                              self._kf_epoch])
+                              None, None, self._kf_epoch])
         self._roll(out)
         if tlog is not None:
             t_b = time.perf_counter()
@@ -475,12 +509,15 @@ class StereoFrontend:
         later, at a stale epoch)."""
         C = CAND_CAP
         for entry in reversed(self._pending):
-            _, cand_ids, out, fut, _ = entry
+            _, cand_ids, out, fut, corr_R, corr_t, _ = entry
             if not fut.done():
                 continue
             pk = fut.result()
             R_cw = pk[0:9].reshape(3, 3)
             t_cw = pk[9:12]
+            if corr_R is not None:
+                t_cw = R_cw @ corr_t + t_cw
+                R_cw = R_cw @ corr_R
             n_matched, n_gated = int(pk[24]), int(pk[25])
             if (n_matched < MIN_TRACK_OBS or n_gated < MIN_TRACK_OBS
                     or not np.isfinite(t_cw).all()):
@@ -494,7 +531,8 @@ class StereoFrontend:
             return out, T_np, tracked
         return None
 
-    def _consume(self, cand_ids, out: FrontendStepOut, fut=None, epoch=None):
+    def _consume(self, cand_ids, out: FrontendStepOut, fut=None,
+                 corr_R=None, corr_t=None, epoch=None):
         """The host policy on one fetched frame (pipelined mode): pose
         update, tracked set, switch and drop decisions, deferred spawns.
         Returns (success, packet_landed)."""
@@ -519,6 +557,11 @@ class StereoFrontend:
             pk = out.packed.cpu().numpy()
         R_cw = pk[0:9].reshape(3, 3)
         t_cw = pk[9:12]
+        if corr_R is not None:
+            # dispatched before a backend rebase: apply the same
+            # right-multiplicative world correction the chain received
+            t_cw = R_cw @ corr_t + t_cw
+            R_cw = R_cw @ corr_R
         n_matched, n_gated, t_norm, mean_track_len = pk[24:28]
         quad_counts = pk[30:34]
         gate = pk[34:34 + C] > 0.5
@@ -584,18 +627,23 @@ class StereoFrontend:
             # decision + device dispatch now; the packet lands at a later
             # consume. The spawn source is the newest landed in-flight frame
             # when one qualifies
+            if self.per_mon is not None:
+                self.per_mon.start("drop keyframe")
             src = self._freshest_spawn_source()
             if src is not None:
                 self._add_new_keyframe(src[0], defer=True,
                                        T_np=src[1], tracked=src[2])
             else:
                 self._add_new_keyframe(out, defer=True)
+            if self.per_mon is not None:
+                self.per_mon.stop("drop keyframe")
         return True, spawn_landed
 
     # -- candidate assembly ------------------------------------------------ #
     def _collect_candidates(self) -> np.ndarray:
-        """actkey's points + covis neighbours' points, deduped, packed into
-        the per-level sections (parity: stereo_frontend.cpp:977-1050)."""
+        """actkey's points + covis neighbours' points + the adopted
+        neighborhood's points, deduped, packed into the per-level sections
+        (parity: stereo_frontend.cpp:977-1050)."""
         lists = []
         if self.actkey_id in self.kf_point_ids:
             lists.append(self.kf_point_ids[self.actkey_id])
@@ -604,6 +652,9 @@ class StereoFrontend:
             key=lambda k: -self.covis[self.actkey_id][k],
         ):
             lists.append(self.kf_point_ids.get(nbr, np.zeros(0, np.int64)))
+        if self.neighborhood is not None:
+            lists.append(np.asarray(
+                self.neighborhood.get("point_ids", []), np.int64))
         ids = pd_unique(np.concatenate(lists)) if lists else np.zeros(0, np.int64)
         out = np.full((CAND_CAP,), -1, np.int64)
         if len(ids):
@@ -811,15 +862,174 @@ class StereoFrontend:
             pkt_args["tracked_levels"], pkt_args["strengths"],
             pyr=pkt_args["pyr"], disp=pkt_args["disp"],
             points_snapshot=self.points, poses_snapshot=self.poses,
+            ready_event=self._ready_event(),
         )
         self.to_optimizer_stack.append(pkt)
         self._ready_packets.append(pkt)
         return pkt
 
+    def reseed(self, R_cw: np.ndarray, t_cw: np.ndarray,
+               actkey_id: int = None):
+        """Re-seed the tracking state at an externally estimated world pose
+        (relocalization). In-flight pipelined frames are discarded (their
+        pose chain is invalid)."""
+        self._pending.clear()
+        self._pending_spawn = None
+        self._dev_R_cw = None
+        self._dev_t_cw = None
+        self._R_cw = np.asarray(R_cw, np.float32)
+        self._t_cw = np.asarray(t_cw, np.float32)
+        if actkey_id is not None and actkey_id in self.pose_np:
+            self.actkey_id = actkey_id
+        if self.actkey_id in self.pose_np:
+            Rk, tk = self.pose_np[self.actkey_id]
+            self._R_cak = (self._R_cw @ Rk.T).astype(np.float32)
+            self._t_cak = (self._t_cw - self._R_cak @ tk).astype(np.float32)
+        self._cand_np = None
+
     def take_ready_packets(self):
         """Finalized keyframe packets since the last call."""
         pkts, self._ready_packets = self._ready_packets, []
         return pkts
+
+    # -- backend feedback --------------------------------------------------- #
+    def apply_neighborhood(self, nb):
+        """Adopt a backend-optimized neighborhood (stereo_slam.cpp:694-703:
+        adopt only if it contains the current actkey, or shares a covis link
+        with it — the backend answers a not-yet-inserted actkey's query at
+        its newest inserted ancestor).
+
+        The host mirrors update at once; the device writes (poses and psis)
+        go up as ONE packed upload whose fused scatter applies at the top of
+        the next frame step (`_apply_nb_pending`)."""
+        if nb is None:
+            return False
+        kf_ids = nb.get("kf_ids", [])
+        if self.actkey_id not in kf_ids:
+            if not set(kf_ids) & set(self.covis.get(self.actkey_id, {})):
+                return False
+        nb_poses = nb.get("poses", {})
+        P, C = _POSE_SCATTER_CAP, _PSI_SCATTER_CAP
+        # index padding 1<<30 (exact in f32); the scatter drops it
+        pidx = np.full(P, 1 << 30, np.int32)
+        Rp = np.zeros((P, 3, 3), np.float32)
+        tp = np.zeros((P, 3), np.float32)
+        if nb_poses:
+            kfs = np.fromiter(nb_poses.keys(), np.int64, len(nb_poses))[:P]
+            Rs = np.stack([nb_poses[int(k)][0]
+                           for k in kfs]).astype(np.float32)
+            ts = np.stack([nb_poses[int(k)][1]
+                           for k in kfs]).astype(np.float32)
+            pidx[: len(kfs)] = kfs
+            Rp[: len(kfs)] = Rs
+            tp[: len(kfs)] = ts
+            for k, R, t in zip(kfs, Rs, ts):
+                self.pose_np[int(k)] = (R, t)
+        cidx = np.full(C, 1 << 30, np.int32)
+        vals = np.zeros((C, 3), np.float32)
+        pids = nb.get("psi_ids")
+        n_psi = 0 if pids is None else min(len(pids), C)
+        if n_psi:
+            cidx[:n_psi] = np.asarray(pids)[:n_psi]
+            vals[:n_psi] = np.asarray(nb["psi_vals"], np.float32)[:n_psi]
+        if nb_poses or n_psi:
+            buf = np.concatenate([
+                pidx.astype(np.float32), Rp.reshape(-1), tp.reshape(-1),
+                cidx.astype(np.float32), vals.reshape(-1),
+            ])
+            if self._nb_pending is not None:
+                self._apply_nb_pending(block=True)
+            self._nb_pending = _upload_f32(buf, self.device)
+        # keep the world pose consistent with the (possibly moved) actkey,
+        # SVD-projected back onto SO(3) so adoptions do not accumulate
+        # non-orthonormality
+        R_old, t_old = self._R_cw.copy(), self._t_cw.copy()
+        Rk, tk = self.pose_np[self.actkey_id]
+        self._R_cw = _project_so3(self._R_cak @ Rk)
+        self._t_cw = (self._R_cak @ tk + self._t_cak).astype(np.float32)
+        # propagate the rebase to the in-flight device pose chain exactly:
+        # one right-multiplication by D = T_cw_old^-1 o T_cw_new
+        if self._dev_R_cw is not None and np.isfinite(R_old).all():
+            D_R = (R_old.T @ self._R_cw).astype(np.float32)
+            D_t = (R_old.T @ (self._t_cw - t_old)).astype(np.float32)
+            D = _upload_f32(np.concatenate([D_R.reshape(-1), D_t]),
+                            self.device)
+            self._dev_R_cw, self._dev_t_cw = _compose_right(
+                self._dev_R_cw, self._dev_t_cw, D[:9].reshape(3, 3), D[9:])
+            # fetched (or in-fetch) packed results of in-flight frames are
+            # raw: record the correction for their consume
+            for entry in self._pending:
+                if entry[4] is None:
+                    entry[4], entry[5] = D_R, D_t
+                else:
+                    cR, ct = entry[4], entry[5]
+                    entry[4] = (cR @ D_R).astype(np.float32)
+                    entry[5] = (cR @ D_t + ct).astype(np.float32)
+        self.neighborhood = nb
+        self._cand_np = None  # the neighborhood may add candidates
+        return True
+
+    def _apply_nb_pending(self, block: bool = False):
+        """Apply the pending neighborhood upload to the device tables (ONE
+        fused scatter, no fetch). The upload is ordered on the frontend's
+        stream before the scatter, so it is always ready; `block` is kept
+        for the twin's call sites."""
+        buf = self._nb_pending
+        if buf is None:
+            return
+        self._nb_pending = None
+        self.poses, psi = _nb_scatter_packed(self.poses, self.points.psi, buf)
+        self.points = self.points._replace(psi=psi)
+
+
+def _upload_f32(x: np.ndarray, device) -> torch.Tensor:
+    """f32 host array -> device tensor; a pinned non-blocking copy on a
+    card (no host sync)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _nb_scatter_packed(poses: PoseTable, psi_tab: torch.Tensor,
+                       buf: torch.Tensor):
+    """Neighborhood adoption as one fused scatter over one packed buffer:
+    the pose writeback (R, t, valid — PoseTable.set_many) and the psi
+    writeback (scatter_psi). Layout of `buf` (f32): [pose idx (P), R (P*9),
+    t (P*3), psi idx (C), psi (C*3)]; the indices are integral f32 values
+    and the padding rows (1<<30) are dropped."""
+    P, C = _POSE_SCATTER_CAP, _PSI_SCATTER_CAP
+    o = 0
+    pidx = buf[o:o + P].to(torch.int64)
+    o += P
+    Rp = buf[o:o + P * 9].reshape(P, 3, 3)
+    o += P * 9
+    tp = buf[o:o + P * 3].reshape(P, 3)
+    o += P * 3
+    cidx = buf[o:o + C].to(torch.int64)
+    o += C
+    vals = buf[o:o + C * 3].reshape(C, 3)
+    return poses.set_many(pidx, Rp, tp), scatter_psi(psi_tab, cidx, vals)
+
+
+def _project_so3(R: np.ndarray) -> np.ndarray:
+    """Nearest rotation matrix (Frobenius) via SVD, host-side."""
+    u, _, vt = np.linalg.svd(R.astype(np.float64))
+    u[:, 2] *= np.sign(np.linalg.det(u @ vt))
+    return (u @ vt).astype(np.float32)
+
+
+def _compose_right(R, t, D_R, D_t):
+    """(R,t) o (D_R,D_t): right-multiply a pose by a correction, then
+    re-orthonormalize by Gram-Schmidt on the rows (handedness kept by the
+    cross product), so the correction chain does not accumulate
+    non-orthonormality."""
+    Rc = R @ D_R
+    r0 = Rc[0] / torch.linalg.norm(Rc[0])
+    r1 = Rc[1] - torch.dot(Rc[1], r0) * r0
+    r1 = r1 / torch.linalg.norm(r1)
+    r2 = torch.linalg.cross(r0, r1)
+    return torch.stack([r0, r1, r2]), R @ D_t + t
 
 
 def _as_f32(x):

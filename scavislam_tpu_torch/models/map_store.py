@@ -12,6 +12,12 @@ Updates are functional, as in the twin: ``set`` and ``insert_block`` return
 new tables and leave the old ones intact, so a table handed out as a
 snapshot (``AddToOptimizer.points_snapshot``) never changes under its
 holder. Only the fields a write touches are copied.
+
+The padded scatters (``PoseTable.set_many``, ``scatter_psi``) drop indices
+outside ``[0, cap)``, as the twin's ``mode="drop"`` scatters do: callers pad
+with the sentinel ``1 << 30``. The rows are masked out before the write, never
+clamped (a clamped index would overwrite the last row; an unmasked one is a
+device-side assert on CUDA).
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ class PoseTable(NamedTuple):
         t[idx] = torch.as_tensor(T_kw.t, dtype=torch.float32, device=t.device)
         valid[idx] = True
         return PoseTable(R, t, valid)
+
+    def set_many(self, idx, Rs, ts) -> "PoseTable":
+        """Batched pose writeback; out-of-range ids (padding) are dropped."""
+        return _pose_scatter(self, idx, Rs, ts)
 
 
 class PointTable(NamedTuple):
@@ -90,3 +100,55 @@ class PointTable(NamedTuple):
             put(self.level, level), put(self.patch, patches),
             put(self.uv0, uv0), put(self.valid, ok),
         )
+
+
+def _masked_put(table: torch.Tensor, idx, vals) -> torch.Tensor:
+    """A copy of `table` with rows `idx` set to `vals`, rows whose index lies
+    outside [0, cap) dropped. The dropped rows are sent to one spare row past
+    the end, which is cut off again: no host sync, no real row touched."""
+    cap = table.shape[0]
+    idx = idx.to(device=table.device, dtype=torch.int64)
+    idx = torch.where((idx >= 0) & (idx < cap), idx, torch.full_like(idx, cap))
+    out = torch.cat([table, table[:1]])
+    out.index_put_((idx,), vals.to(device=table.device, dtype=table.dtype)
+                   .expand(idx.shape[0], *table.shape[1:]))
+    return out[:cap]
+
+
+def _pose_scatter(poses: PoseTable, idx, Rs, ts) -> PoseTable:
+    return PoseTable(
+        _masked_put(poses.R, idx, Rs),
+        _masked_put(poses.t, idx, ts),
+        _masked_put(poses.valid, idx,
+                    torch.ones((), dtype=torch.bool, device=poses.R.device)),
+    )
+
+
+def scatter_psi(psi_table: torch.Tensor, pids, vals) -> torch.Tensor:
+    """Masked psi writeback: `pids` padded with out-of-range ids (dropped).
+
+    The backend returns a different number of optimized points per
+    neighborhood; callers pad to a fixed capacity."""
+    return _masked_put(psi_table, pids, vals)
+
+
+def materialize_points(poses: PoseTable, points: PointTable, ids: torch.Tensor):
+    """Gather world positions + anchor poses for point ids (N,).
+
+    xyz_w = A_aw^-1 * invert_depth(psi). Returns
+    (xyz_w (N,3), R_aw (N,3,3), t_aw (N,3), patches (N,16,16), ok (N,)).
+    Invalid ids (< 0) yield ok=False.
+    """
+    ids = ids.to(torch.int64)
+    safe = ids.clamp(0, points.psi.shape[0] - 1)
+    psi = points.psi[safe]
+    q = psi[:, 2:3]
+    q_safe = torch.where(torch.abs(q) < 1e-9, torch.full_like(q, 1e-9), q)
+    xyz_a = torch.cat([psi[:, :2], torch.ones_like(q)], dim=-1) / q_safe
+    a_idx = points.anchor[safe].to(torch.int64)
+    R_aw = poses.R[a_idx]
+    t_aw = poses.t[a_idx]
+    # T_wa = T_aw^-1 : x_w = R_aw^T (x_a - t_aw)
+    xyz_w = torch.einsum("nji,nj->ni", R_aw, xyz_a - t_aw)
+    ok = (ids >= 0) & points.valid[safe] & poses.valid[a_idx] & (q[:, 0] > 1e-9)
+    return xyz_w, R_aw, t_aw, points.patch[safe], ok

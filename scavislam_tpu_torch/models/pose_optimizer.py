@@ -6,9 +6,13 @@ MAX_ITERS accepted steps and MAX_TRIALS failed trials in a row,
 left-multiplicative updates. Invalid observations are masked (weight 0) so
 shapes stay fixed.
 
-Like the dense tracker's, the LM control runs on the host on fetched
-results (two small transfers per iteration). The uv (mono) optimizer and
-``filter_points_info`` are not ported yet.
+Two forms of the same loop. ``motion_only_ba`` (the frame step's) runs the
+LM control on the host on fetched results, like the dense tracker: two small
+transfers per iteration. ``motion_only_ba_robust`` (the backend's
+registration) runs a fixed trip count of MAX_ITERS * MAX_TRIALS with masked
+updates entirely on the device: the same answer, no host sync, so a
+registration on the backend's stream never waits for the host. The uv (mono)
+optimizer and ``filter_points_info`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -168,3 +172,107 @@ def _lm_pose_core(_masked_residuals, jacobian, T_init, weights, valid,
     residuals, inliers, _ = _masked_residuals(T_dev.R, T_dev.t)
     return MotionOnlyResult(
         T_dev, chi2_dev, torch.sum(valid.to(torch.int32)), residuals, inliers)
+
+
+def _stereo_residuals(cam: StereoCamera, xyz_w, obs_uvu, valid):
+    """`_masked_residuals(R, t)` for the stereo (uvu) observations."""
+
+    def _masked_residuals(R, t):
+        pred, y, z = _predict(cam, R, t, xyz_w)
+        r = obs_uvu - pred
+        mask = valid & (z > 0.1) & torch.all(torch.isfinite(r), dim=-1)
+        r = torch.where(mask[:, None], r, torch.zeros_like(r))
+        return r, mask, y
+
+    return _masked_residuals
+
+
+def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
+                   huber_delta):
+    """The robust LM loop of `_lm_pose_core` as MAX_ITERS * MAX_TRIALS
+    masked trips on the device (the bound on the twin's while_loop: at most
+    MAX_TRIALS - 1 rejections before each of MAX_ITERS accepts). A trip
+    past the loop's end changes nothing. Each trip evaluates chi2, H and b
+    at the candidate pose in one pass; an accept carries them over, so H
+    and b are always those of the current pose, as the twin recomputes
+    them. Returns (R, t, chi2) tensors."""
+    R, t = T_init.R, T_init.t
+    dev, f32 = R.device, torch.float32
+
+    def evaluate(R, t):
+        r, mask, aux = _masked_residuals(R, t)
+        s = torch.sum(r * r, dim=-1)
+        w = weights * pseudo_huber_weight(s, huber_delta) * mask
+        J = torch.where(mask[:, None, None], jacobian(aux), 0.0)
+        Jw = J * w[:, None, None]
+        return (torch.sum(w * s), torch.einsum("nij,nik->jk", Jw, J),
+                torch.einsum("nij,ni->j", Jw, r))
+
+    chi2, H, b = evaluate(R, t)
+    # device fills: a host-built tensor would sync the stream
+    mu = torch.full((), 0.01, dtype=f32, device=dev)
+    nu = torch.full((), 2.0, dtype=f32, device=dev)
+    trial = torch.zeros((), dtype=torch.int32, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    eye = torch.eye(6, dtype=f32, device=dev)
+    for _ in range(MAX_ITERS * MAX_TRIALS):
+        active = (it < MAX_ITERS) & ~stop
+        Hd = H + mu * torch.diag(torch.diag(H)) + 1e-12 * eye
+        L, info = torch.linalg.cholesky_ex(Hd)
+        x = torch.cholesky_solve(b[:, None], L)[:, 0]
+        x = torch.where(torch.isfinite(x) & (info == 0), x, 0.0)
+        Te = SE3.exp(x)
+        R_new, t_new = Te.R @ R, Te.R @ t + Te.t
+        chi2_new, H_new, b_new = evaluate(R_new, t_new)
+        gain = chi2 - chi2_new
+        accept = active & (gain > 0)
+        reject = active & ~(gain > 0)
+        # normalized gain ratio for the mu schedule
+        denom = torch.clamp(torch.sum(x * (mu * x + b)), min=1e-20)
+        rho_n = gain / denom
+        mu_acc = mu * torch.clamp(1.0 - (2.0 * rho_n - 1.0) ** 3, min=1.0 / 3.0)
+        trial_new = torch.where(accept, 0, trial + 1)
+        stop_new = torch.where(accept, torch.max(torch.abs(x)) <= 1e-10,
+                               trial_new >= MAX_TRIALS)
+        R = torch.where(accept, R_new, R)
+        t = torch.where(accept, t_new, t)
+        chi2 = torch.where(accept, chi2_new, chi2)
+        H = torch.where(accept, H_new, H)
+        b = torch.where(accept, b_new, b)
+        mu = torch.where(accept, mu_acc, torch.where(reject, mu * nu, mu))
+        nu = torch.where(accept, 2.0, torch.where(reject, nu * 2.0, nu))
+        trial = torch.where(active, trial_new, trial)
+        it = torch.where(accept, it + 1, it)
+        stop = torch.where(active, stop_new, stop)
+    return R, t, chi2
+
+
+def motion_only_ba_fixed(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu,
+                         weights, valid, huber_delta: float = 1.0
+                         ) -> MotionOnlyResult:
+    """`motion_only_ba` as a fixed-trip device loop (`_lm_pose_fixed`)."""
+    residuals_of = _stereo_residuals(cam, xyz_w, obs_uvu, valid)
+    R, t, chi2 = _lm_pose_fixed(residuals_of, lambda y: _jac(cam, y), T_init,
+                                weights, huber_delta)
+    residuals, inliers, _ = residuals_of(R, t)
+    return MotionOnlyResult(SE3(R, t), chi2, torch.sum(valid.to(torch.int32)),
+                            residuals, inliers)
+
+
+def motion_only_ba_robust(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu,
+                          weights, valid, huber_delta: float = 1.0,
+                          reject_thresh: float = 3.0, rounds: int = 2
+                          ) -> MotionOnlyResult:
+    """LM + outlier rejection: optimize, drop obs with max-component residual
+    above ``reject_thresh`` pixels, re-optimize. Each round is the
+    fixed-trip device loop, so the whole call runs without a host sync."""
+    res = motion_only_ba_fixed(cam, T_init, xyz_w, obs_uvu, weights, valid,
+                               huber_delta)
+    keep = valid
+    for _ in range(rounds - 1):
+        keep = (keep & res.inlier_mask
+                & (torch.amax(torch.abs(res.residuals), dim=-1) < reject_thresh))
+        res = motion_only_ba_fixed(cam, res.T, xyz_w, obs_uvu, weights, keep,
+                                   huber_delta)
+    return res

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scavislam_tpu_torch.ops.image import binomial3
+
 # Bresenham circle of radius 3 (the FAST-16 ring), (du, dv) offsets.
 _CIRCLE = np.array(
     [
@@ -97,3 +99,39 @@ def detect_corners_grid(
     us = (cx * cw + top_idx % cw).to(torch.float32)
     uv = torch.stack([us.reshape(-1), vs.reshape(-1)], dim=-1)
     return uv, top_scores.reshape(-1), valid.reshape(-1)
+
+
+def corner_buckets(
+    img: torch.Tensor,
+    threshold: float = 10.0 / 255.0,
+    cells_y: int = 24,
+    cells_x: int = 32,
+    per_cell: int = 8,
+):
+    """The corners of :func:`detect_corners_grid` organized as (cells_y,
+    cells_x, per_cell) buckets, so a matcher gathers the 3x3 cell
+    neighbourhood of any predicted location in O(1).
+
+    Returns dict with "uv" (cy, cx, K, 2), "score" (cy, cx, K) and
+    "valid" (cy, cx, K)."""
+    uv, score, valid = detect_corners_grid(
+        img, threshold, cells_y, cells_x, per_cell)
+    return {
+        "uv": uv.reshape(cells_y, cells_x, per_cell, 2),
+        "score": score.reshape(cells_y, cells_x, per_cell),
+        "valid": valid.reshape(cells_y, cells_x, per_cell),
+    }
+
+
+def corner_buckets_prefiltered(
+    img: torch.Tensor,
+    threshold: float = 10.0 / 255.0,
+    cells_y: int = 24,
+    cells_x: int = 32,
+    per_cell: int = 8,
+):
+    """:func:`corner_buckets` on the 3x3-binomial-smoothed image: the
+    backend's re-detection mirrors the frame step's sensor-noise prefilter,
+    so it finds the frame step's corners."""
+    return corner_buckets(binomial3(img), threshold, cells_y, cells_x,
+                          per_cell)

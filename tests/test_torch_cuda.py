@@ -6,6 +6,8 @@ This file imports no JAX (the machine with the card has none), so on a card:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -209,3 +211,100 @@ def test_stream_pool_on_card(cuda_device):
         assert len(traj) == n
         assert _ate([T for _, T in traj],
                     [seqs[s].poses[i] for i, _ in traj]) < 0.05
+
+
+def _ba_problem(device, seed=11, P=8, L=128, O=1024, E=16):
+    """A seeded BA problem: 6 keyframes sliding along x in front of points
+    at 3-9 m, every keyframe observing every point with 0.5 px noise, poses
+    2.. and points perturbed."""
+    from scavislam_tpu_torch.models.ba_solver import BAProblem
+    rng = np.random.RandomState(seed)
+    n_poses, n_pts = 6, 96
+    f = {k: v.clone() for k, v in BAProblem.empty(P, L, O, E)._asdict().items()}
+    cen = np.array([[0.25 * i, 0.0, 0.1 * i] for i in range(n_poses)])
+    xyz = np.stack([rng.uniform(-1, 3, n_pts), rng.uniform(-1, 1, n_pts),
+                    rng.uniform(3, 9, n_pts)], -1)
+    anchors = np.arange(n_pts) % n_poses
+    xa = xyz - cen[anchors]
+    psi = np.stack([xa[:, 0] / xa[:, 2], xa[:, 1] / xa[:, 2], 1 / xa[:, 2]], -1)
+    f["t"][:n_poses] = torch.as_tensor(-cen + np.r_[np.zeros((2, 3)),
+                                       rng.randn(n_poses - 2, 3) * 0.02])
+    f["pose_valid"][:n_poses] = True
+    f["pose_fixed"][:2] = True
+    f["psi"][:n_pts] = torch.as_tensor(psi + rng.randn(n_pts, 3) * 0.02)
+    f["point_valid"][:n_pts] = True
+    f["anchor_slot"][:n_pts] = torch.as_tensor(anchors)
+    y = xyz[None] - cen[:, None]  # (poses, points, 3)
+    uvu = np.stack([y[..., 0] / y[..., 2] * CAM.focal + CAM.pp[0],
+                    y[..., 1] / y[..., 2] * CAM.focal + CAM.pp[1],
+                    (y[..., 0] - CAM.baseline) / y[..., 2] * CAM.focal
+                    + CAM.pp[0]], -1).reshape(-1, 3)
+    n = n_poses * n_pts
+    f["obs_pose"][:n] = torch.as_tensor(np.repeat(np.arange(n_poses), n_pts))
+    f["obs_point"][:n] = torch.as_tensor(np.tile(np.arange(n_pts), n_poses))
+    f["obs_uvu"][:n] = torch.as_tensor(uvu + rng.randn(n, 3) * 0.5)
+    f["obs_valid"][:n] = True
+    return BAProblem(**{k: v.to(device) for k, v in f.items()})
+
+
+@pytest.mark.cuda
+def test_solve_ba_on_card_matches_cpu(cuda_device):
+    # the same problem solved on the card and on the CPU: R, t, psi within
+    # 1e-3, chi2 within 1e-3 relative
+    from scavislam_tpu_torch.models.ba_solver import solve_ba
+    cam_params = (CAM.focal, CAM.pp[0], CAM.pp[1], CAM.baseline)
+    out_c = solve_ba(cam_params, _ba_problem("cpu"), iters=2)
+    out_g = solve_ba(cam_params, _ba_problem(cuda_device), iters=2)
+    for a, b in zip(out_g[:3], out_c[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-3)
+    for a, b in zip(out_g[3][:2], out_c[3][:2]):
+        assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b))
+    assert float(out_g[3].chi2_final) < float(out_g[3].chi2_initial)
+
+
+@pytest.mark.cuda
+def test_padded_scatters_on_card(cuda_device):
+    # ids padded with 1 << 30 are dropped on the card (no device assert) and
+    # the padded rows leave every other row untouched
+    from scavislam_tpu_torch.models.map_store import PoseTable, scatter_psi
+    psi = torch.randn(64, 3, device=cuda_device)
+    ids = torch.tensor([5, 1 << 30, 63, 1 << 30, -1], device=cuda_device)
+    vals = torch.randn(5, 3, device=cuda_device)
+    out = scatter_psi(psi, ids, vals)
+    torch.cuda.synchronize()
+    expect = psi.clone()
+    expect[5], expect[63] = vals[0], vals[2]
+    assert torch.equal(out, expect)
+    poses = PoseTable.empty(16, device=cuda_device).set_many(
+        ids, torch.randn(5, 3, 3, device=cuda_device), vals)
+    torch.cuda.synchronize()
+    assert poses.valid.nonzero().flatten().tolist() == [5]
+
+
+@pytest.mark.cuda
+def test_threaded_slam_system_on_card(cuda_device):
+    # 20 frames threaded and pipelined: every frame tracked, the backend's
+    # graph holds every keyframe after finish(), at least one solve adopted
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem, ate_rmse
+    n = 20
+    seq = SyntheticSequence(CAM, n_frames=n, device=cuda_device)
+    frames = [seq.frame(i) for i in range(n)]
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, ui=dataclasses.replace(cfg.ui,
+                                                          parallax_thr=0.1))
+    system = SlamSystem(CAM, cfg, threaded=True,
+                        enable_loop_closure=False, pipelined=True,
+                        pipeline_depth=3)
+    try:
+        system.process_first_frame(frames[0])
+        for f in frames[1:]:
+            assert system.process_frame(f)
+        system.finish()
+    finally:
+        system.shutdown()
+    g = system.backend.graph
+    assert len(system.trajectory) == n
+    assert sorted(g.vertices) == list(range(system.frontend.next_kf))
+    assert len(g.solve_log) >= 1
+    traj = sorted(system.trajectory, key=lambda e: e[0])
+    assert ate_rmse(traj, [frames[i]["T_cw_gt"] for i, _ in traj]) < 0.05
