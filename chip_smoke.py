@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one CUDA card: the synchronous
-and pipelined single-stream frontend, the 8-stream pool, and the whole
-SlamSystem (frontend + backend) as the headline benchmark configures it.
+and pipelined single-stream frontend, the 8-stream pool, the whole
+SlamSystem (frontend + backend + place recognition) as the headline
+benchmark configures it, the loop-closure workload and relocalization.
 
 Run from the root of a checkout, with no arguments:
 
@@ -50,13 +51,39 @@ non-zero before the result line):
    backend's counters, neighborhoods adopted, ATE and kernel launches;
    every frame tracked, vertices == keyframes after finish(), a solve
    adopted with chi2_final <= chi2_init, ATE < 0.05 m, one single-image
-   launch per frame. Then the same frames unthreaded and synchronous (the
-   deterministic mode) with the same numbers and checks. Last, solve_ba
+   launch per frame. Then the same run with loop closure on (the twin's
+   default; pr_lossless), after its own warm-up run: the same checks, the
+   recognizer indexed every keyframe, each from its keyframe's pr_packed
+   block (no describe on the recognizer's thread), and its frames/s beside
+   the loop-closure-off run's. Then the same frames unthreaded and
+   synchronous (the deterministic mode, loop closure off) with the same
+   numbers and checks. Last, solve_ba
    alone on the threaded run's last packed problem at the full capacities
    (P, L, O, E) = (128, 2048, 8192, 512), captured as a CUDA graph: median
    of 25 replays with CUDA events, and each stage of one LM round (normal
    equations, Schur product, Cholesky plus back-substitution) the same
    way; the eager call's wall time beside.
+9. loop    — benchmarks/run_configs.py config 2 through the port: the
+   256x192 camera, the 90-frame 360-degree spin in closed_box() (step
+   1/89), covis_thr 10, parallax_thr 0.25, windows 3 + 8, SlamSystem
+   threaded, pipelined at depth 3, loop closure on with pr_lossless, after
+   place_recognizer.warmup() and a warm-up run: frames/s, the recognizer's
+   and the backend's glc_* counters, loops, METRIC and APPEARANCE edges,
+   ATE (beside them, unchecked: the same run with loop closure off and the
+   pipelined frontend alone); at least 88 of 90 frames tracked, the graph reconnected (an
+   APPEARANCE or METRIC edge between keyframes more than 4 apart, or a
+   closed loop), ATE < 0.1 m, one single-image launch per frame. Then,
+   with CUDA events over 25 runs: the keyframe spawn step with and without
+   the vocabulary (the describe's cost per keyframe) and bow_describe
+   alone as a CUDA graph replay; the geometric check at the 256-key
+   capacity as a graph replay, and its wall time with its upload and
+   download; it must enqueue with no synchronizing call
+   (torch.cuda.set_sync_debug_mode("error")); one relocalize call, wall
+   time;
+10. relocalize — tests/test_relocalization.py's kidnap on the card,
+   unthreaded at 256x192 in the default room: 10 frames, 3 noise frames ->
+   lost, frame 5 again -> one relocalization with position error < 0.25
+   m, 3 more frames -> error < 0.08 m.
 
 After the phases, the device time of each kernel of one single-image call
 (torch.profiler; last, so that its tracing cannot slow the timed phases).
@@ -64,6 +91,7 @@ The last three lines are the per-kernel JSON record, the card's name and
 power limit, and the result line.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -180,13 +208,19 @@ def _ate(est, gt):
 JAX_CPU_REFERENCE = "not measured"
 
 
-def _run_system(cam, cfg, dev, frames, threaded, pipelined):
+def _run_system(cam, cfg, dev, frames, threaded, pipelined,
+                loop_closure=False, warm_pr=False):
     """One SlamSystem run over `frames` (bench.py's headline configuration
-    when threaded and pipelined). Returns its numbers."""
+    when threaded and pipelined; with loop closure, pr_lossless as
+    benchmarks/run_configs.py config 2 runs it). Returns its numbers."""
     from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
-    system = SlamSystem(cam, cfg, threaded=threaded, enable_loop_closure=False,
+    system = SlamSystem(cam, cfg, threaded=threaded,
+                        enable_loop_closure=loop_closure,
                         pipelined=pipelined,
-                        pipeline_depth=3 if pipelined else None, device=dev)
+                        pipeline_depth=3 if pipelined else None,
+                        pr_lossless=loop_closure, device=dev)
+    if warm_pr:
+        system.place_recognizer.warmup()
     fe = system.frontend
     adopted = [0]
     apply_nb = fe.apply_neighborhood
@@ -220,8 +254,9 @@ def _run_system(cam, cfg, dev, frames, threaded, pipelined):
     if not ok and failed is None:
         failed = frames[-1]["frame_id"]
     g = system.backend.graph
-    traj = sorted(system.trajectory, key=lambda e: e[0])
     gt = {f["frame_id"]: f["T_cw_gt"] for f in frames}
+    traj = sorted((e for e in system.trajectory if e[0] in gt),
+                  key=lambda e: e[0])
     ate = _ate([T for _, T in traj], [gt[i] for i, _ in traj])
     solve_ms = [ms for _, ms in g.solve_log]
     return {
@@ -336,6 +371,235 @@ def _time_solve(graph):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f"; last chi2 {float(out[3].chi2_initial):.3f} -> "
           f"{float(out[3].chi2_final):.3f}", flush=True)
+
+
+LOOP_FRAMES = 90
+LOOP_ATE_MAX = 0.1
+RELOC_ERR_MAX = (0.25, 0.08)
+
+
+def _loop_cam_cfg(cfg, parallax_thr, windows=None):
+    """The 256x192 camera of the repo's loop-closure and relocalization
+    workloads, and `cfg` cut to them (covis_thr 10, the parallax threshold,
+    the graph windows when given)."""
+    from scavislam_tpu_torch.core.camera import StereoCamera
+    cam = StereoCamera.create(195.0, (127.0, 95.0), (256, 192), 0.12)
+    out = dataclasses.replace(
+        cfg, frontend=dataclasses.replace(cfg.frontend, covis_thr=10),
+        ui=dataclasses.replace(cfg.ui, parallax_thr=parallax_thr))
+    if windows is not None:
+        out = dataclasses.replace(out, graph=dataclasses.replace(
+            out.graph, inner_window=windows[0], outer_window=windows[1]))
+    return cam, out
+
+
+def _phase_loop(cfg, dev):
+    """Phase 9: benchmarks/run_configs.py config 2 through the port, then
+    the recognizer's device costs."""
+    from scavislam_tpu_torch.io.synthetic import SyntheticSequence, closed_box
+    from scavislam_tpu_torch.models.frontend import (NEW_PER_LEVEL,
+                                                     TRACKED_CAP,
+                                                     StereoFrontend)
+    from scavislam_tpu_torch.models.frontend_step import (
+        spawn_points_step_packed)
+    from scavislam_tpu_torch.models.placerec import _geom_check_device
+    from scavislam_tpu_torch.models.slam_graph import APPEARANCE, METRIC
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.ops.descriptors import bow_describe
+
+    cam, lcfg = _loop_cam_cfg(cfg, 0.25, windows=(3, 8))
+    n = LOOP_FRAMES
+    seq = SyntheticSequence(cam, n_frames=n, kind="spin", planes=closed_box(),
+                            step=1.0 / (n - 1), device=dev)
+    frames = []
+    for i in range(n):
+        f = seq.frame(i)
+        frames.append({"frame_id": i, "left": f["left"], "right": f["right"],
+                       "T_cw_gt": f["T_cw_gt"]})
+    _run_system(cam, lcfg, dev, frames[:12], threaded=True, pipelined=True,
+                loop_closure=True, warm_pr=True)
+    torch.cuda.synchronize()
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    r = _run_system(cam, lcfg, dev, frames, threaded=True, pipelined=True,
+                    loop_closure=True, warm_pr=True)
+    launches = stereo_bm.block_matching_disparity_bm.launches
+    batched = stereo_bm.block_matching_disparity_bm_batched.launches
+    system = r["system"]
+    pr = system.place_recognizer
+    g = system.backend.graph
+    types = [e.edge_type for e in g.edges.values()]
+    far = sorted((a, b, e.edge_type) for (a, b), e in g.edges.items()
+                 if abs(a - b) > 4 and e.edge_type in (APPEARANCE, METRIC))
+    glc = {k: v for k, v in sorted(r["counters"].items())
+           if k.startswith("glc_") or k.startswith("reg_")}
+    print(f"loop: {r['tracked']}/{n} frames tracked, {r['keyframes']} "
+          f"keyframes, {r['vertices']} graph vertices, {r['fps']:.2f} "
+          f"frames/s over frames 2..{n - 1} (finish drain "
+          f"{1000 * r['drain_s']:.1f} ms), ATE {r['ate']:.5f} m, lost at the "
+          f"end {system.lost}, relocalizations {system.relocalizations}; "
+          f"recognizer counters {dict(sorted(pr.counters.items()))}; backend "
+          f"{glc}; closed loops {system.closed_loops}; METRIC edges "
+          f"{types.count(METRIC)}, APPEARANCE edges {types.count(APPEARANCE)},"
+          f" reconnecting edges (|a - b| > 4) {far}; kernel launches "
+          f"{launches} for {n} frames dispatched, batched launches {batched}",
+          flush=True)
+    if r["tracked"] < n - 2:
+        _fail(f"loop: {r['tracked']}/{n} frames tracked")
+    if not far and not system.closed_loops:
+        _fail("loop: the revisit did not reconnect the graph")
+    if not r["ate"] < LOOP_ATE_MAX:
+        _fail(f"loop: ATE {r['ate']} m")
+    if launches != n or batched != 0:
+        _fail(f"loop: kernel launches {launches} != {n} frames")
+    off = _run_system(cam, lcfg, dev, frames, threaded=True, pipelined=True)
+    print(f"loop: the same frames with loop closure off: {off['fps']:.2f} "
+          f"frames/s (on: {r['fps']:.2f}), {off['tracked']}/{n} tracked, "
+          f"{off['keyframes']} keyframes, ATE {off['ate']:.5f} m, backend "
+          f"{off['counters']}", flush=True)
+    fe = StereoFrontend(cam, lcfg, device=dev)
+    fe.pipeline_depth = 3
+    fe.process_first_frame(frames[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[1:]:
+        fe.process_frame_pipelined(f)
+    fe.flush_pipeline()
+    torch.cuda.synchronize()
+    print(f"loop: the pipelined frontend alone (depth 3, no backend) on the "
+          f"same frames: {(n - 1) / (time.perf_counter() - t0):.2f} frames/s "
+          f"over frames 1..{n - 1}, {fe.next_kf} keyframes", flush=True)
+
+    # the recognizer's device costs at this workload's shapes
+    fe = system.frontend
+    pkt = fe.to_optimizer_stack[-1]
+    packed_in = np.zeros(3 * TRACKED_CAP + fe.levels + 1, np.float32)
+    packed_in[3 * TRACKED_CAP: 3 * TRACKED_CAP + fe.levels] = np.cumsum(
+        (0,) + NEW_PER_LEVEL[: fe.levels - 1])
+    clearance = float(lcfg.frontend.newpoint_clearance)
+
+    def spawn(vocab):
+        return spawn_points_step_packed(
+            pkt.pyr, pkt.disp, packed_in, fe.points, fe._cam_params,
+            fe._cam_statics, fe.levels, NEW_PER_LEVEL[: fe.levels],
+            clearance, TRACKED_CAP, vocab)
+
+    ms_spawn_pr = _cuda_ms(lambda: spawn(fe.pr_vocab), TIMING_RUNS)
+    ms_spawn = _cuda_ms(lambda: spawn(None), TIMING_RUNS)
+    ms_spawn_pr2 = _cuda_ms(lambda: spawn(fe.pr_vocab), TIMING_RUNS)
+    cam0 = fe._cam_params[0]
+    g_desc, _ = _graph_of(lambda: bow_describe(pkt.pyr[0], pkt.disp,
+                                               fe.pr_vocab, cam0))
+    ms_desc = _cuda_ms(g_desc.replay, TIMING_RUNS)
+
+    # the geometric check at the 256-key capacity, on two indexed places
+    # (the last query and its best candidate when it had one)
+    ids = sorted(pr.location_map)
+    qa = pr.location_map[ids[-1]]
+    cb = pr.location_map[pr.last_best[0] if pr.last_best else ids[0]]
+    arrays = qa.padded + cb.padded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = pr._check_dispatch(*arrays)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = fut.result()
+    parts = [torch.as_tensor(a, device=dev) for a in arrays]
+    idx = pr.hypotheses(len(arrays[0]))
+    torch.cuda.synchronize()
+    g_chk, _ = _graph_of(lambda: _geom_check_device(
+        idx, *parts, pr._cam_params, 3.0))
+    ms_check = _cuda_ms(g_chk.replay, TIMING_RUNS)
+    walls = []
+    for _ in range(TIMING_RUNS):
+        t0 = time.perf_counter()
+        pr._check_dispatch(*arrays).result()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    ms_check_wall = float(np.median(walls))
+    walls = []
+    hits = 0
+    for _ in range(TIMING_RUNS):
+        t0 = time.perf_counter()
+        hit = pr.relocalize(pkt.pyr[0], pkt.disp)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        hits += hit is not None
+    ms_reloc = float(np.median(walls))
+    print(f"loop: keyframe spawn step {ms_spawn_pr:.3f} / {ms_spawn_pr2:.3f} "
+          f"ms with the {tuple(fe.pr_vocab.shape)} vocabulary against "
+          f"{ms_spawn:.3f} ms without (CUDA events around the eager call, "
+          f"median of {TIMING_RUNS}); bow_describe alone {ms_desc:.4f} device "
+          f"ms (CUDA graph replay); geometric check at {len(arrays[0])} keys "
+          f"{ms_check:.4f} device ms (graph replay), {ms_check_wall:.2f} ms "
+          f"wall with its upload and download, enqueued with no synchronizing "
+          f"call (sync debug mode error), result n_matched {int(res[12])} "
+          f"n_inliers {int(res[13])}; relocalize {ms_reloc:.2f} ms wall "
+          f"(median of {TIMING_RUNS}, {hits} hits)", flush=True)
+
+
+def _phase_relocalize(cfg, dev):
+    """Phase 10: tests/test_relocalization.py's kidnap on the card."""
+    from scavislam_tpu_torch.core.lie import PoseRT
+    from scavislam_tpu_torch.io.synthetic import SyntheticSequence
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+
+    cam, rcfg = _loop_cam_cfg(cfg, 0.08)
+    seq = SyntheticSequence(cam, n_frames=14, step=0.02, device=dev)
+    frames = [seq.frame(i) for i in range(14)]
+    rng = np.random.RandomState(0)
+
+    def err(system, fid, T_gt):
+        T = PoseRT.from_any(dict(system.trajectory)[fid])
+        return float(np.linalg.norm((T @ PoseRT.from_any(T_gt).inverse()).t))
+
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    system = SlamSystem(cam, rcfg, threaded=False, device=dev)
+    fed = 1
+    system.process_first_frame(frames[0])
+    for f in frames[1:10]:
+        fed += 1
+        if not system.process_frame(dict(f)) or system.lost:
+            _fail(f"relocalize: tracking failed at frame {f['frame_id']}")
+    places = len(system.place_recognizer.location_map)
+    for k in range(3):
+        fed += 1
+        noise = {"frame_id": 100 + k,
+                 "left": torch.as_tensor(rng.rand(192, 256).astype(np.float32),
+                                         device=dev),
+                 "right": torch.as_tensor(rng.rand(192, 256).astype(np.float32),
+                                          device=dev)}
+        if not system.process_frame(noise):
+            _fail("relocalize: a noise frame ended the run")
+    lost = system.lost
+    t0 = time.perf_counter()
+    fed += 1
+    system.process_frame(dict(frames[5], frame_id=200))
+    ms = 1e3 * (time.perf_counter() - t0)
+    relocated = not system.lost and system.relocalizations == 1
+    e1 = err(system, 200, frames[5]["T_cw_gt"]) if relocated else None
+    for i in range(6, 9):
+        fed += 1
+        system.process_frame(dict(frames[i], frame_id=200 + i))
+    e2 = (err(system, 208, frames[8]["T_cw_gt"])
+          if relocated and not system.lost else None)
+    system.finish()
+    system.shutdown()
+    launches = stereo_bm.block_matching_disparity_bm.launches
+    print(f"relocalize: {places} places indexed after 10 frames; lost after 3 "
+          f"noise frames {lost}; frame 5 again: relocalized {relocated} "
+          f"({system.relocalizations} relocalizations, {ms:.1f} ms for that "
+          f"frame), position error {e1} m; 3 frames later {e2} m; kernel "
+          f"launches {launches} for {fed} frames fed", flush=True)
+    if not lost:
+        _fail("relocalize: the noise frames did not put the system in lost "
+              "mode")
+    if not relocated or not e1 < RELOC_ERR_MAX[0]:
+        _fail(f"relocalize: no relocalization within {RELOC_ERR_MAX[0]} m")
+    if e2 is None or not e2 < RELOC_ERR_MAX[1]:
+        _fail(f"relocalize: error {e2} m after 3 frames")
+    if launches != fed:
+        _fail(f"relocalize: kernel launches {launches} != {fed} frames")
 
 
 def _scenes(n):
@@ -607,6 +871,30 @@ def main():
     launches_s = stereo_bm.block_matching_disparity_bm.launches
     _check_system("system threaded pipelined", sys_t, launches_s,
                   stereo_bm.block_matching_disparity_bm_batched.launches)
+    # the same with loop closure on, as users run it
+    _run_system(cam, cfg, dev, frames[:12], threaded=True, pipelined=True,
+                loop_closure=True)
+    torch.cuda.synchronize()
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    sys_l = _run_system(cam, cfg, dev, frames, threaded=True, pipelined=True,
+                        loop_closure=True)
+    _check_system("system loop closure", sys_l,
+                  stereo_bm.block_matching_disparity_bm.launches,
+                  stereo_bm.block_matching_disparity_bm_batched.launches)
+    pr = sys_l["system"].place_recognizer
+    print(f"system loop closure: {sys_l['fps']:.2f} frames/s with loop "
+          f"closure on against {sys_t['fps']:.2f} off in this call; "
+          f"recognizer counters {dict(sorted(pr.counters.items()))}, "
+          f"{len(pr.location_map)} places for {sys_l['keyframes']} "
+          f"keyframes, closed loops {len(sys_l['system'].closed_loops)}",
+          flush=True)
+    if pr.counters["indexed"] != sys_l["keyframes"]:
+        _fail(f"system loop closure: indexed {pr.counters['indexed']} != "
+              f"keyframes {sys_l['keyframes']}")
+    if pr.counters["described"] != 0:
+        _fail("system loop closure: the recognizer described "
+              f"{pr.counters['described']} keyframes itself")
     stereo_bm.block_matching_disparity_bm.launches = 0
     sys_u = _run_system(cam, cfg, dev, frames, threaded=False,
                         pipelined=False)
@@ -615,6 +903,8 @@ def main():
     print("system: JAX on the CPU for the unthreaded run at this size: "
           f"{JAX_CPU_REFERENCE}", flush=True)
     _time_solve(sys_t["system"].backend.graph)
+    _phase_loop(cfg, dev)
+    _phase_relocalize(cfg, dev)
 
     try:
         dev_us = _kernel_device_us(

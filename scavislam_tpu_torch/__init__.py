@@ -6,12 +6,18 @@ held against it by the ``tests/test_torch_*.py`` parity tests. This package
 never imports jax or scavislam_tpu.
 
 Ported so far: the stereo visual-odometry slice (``models.frontend.
-StereoFrontend``, synchronous and pipelined) and the multistream path
+StereoFrontend``, synchronous and pipelined), the backend
+(``models.backend.Backend`` over ``models.slam_graph.SlamGraph`` and
+``models.ba_solver``), loop closure and relocalization
+(``models.placerec.PlaceRecognizer`` over ``ops.descriptors`` and
+``ops.ransac``), the whole system (``pipeline.slam_system.SlamSystem``,
+loop closure on by default) and the multistream path
 (``parallel.stream_pool.StreamPool``), with the block matcher written by
 hand in CUDA C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
 
 Device policy: every function runs on the device of the tensors it is given.
-The entry points that hold state (``StereoFrontend``, ``StreamPool``,
+The entry points that hold state (``SlamSystem``, ``StereoFrontend``,
+``Backend``, ``SlamGraph``, ``PlaceRecognizer``, ``StreamPool``,
 ``SyntheticSequence``) take a ``device`` argument that defaults to the CUDA
 card (:func:`resolve_device`); without a card they raise unless the caller
 passes ``device="cpu"``. There is no hidden global device.

@@ -2,13 +2,15 @@
 
 A SLAM system has no weights: its state is the pose and point tables, the
 camera, the rolling dense-tracking state (per-level clouds, intensities,
-valid masks and template Jacobians) and the host bookkeeping of the
-frontend. These functions build the port's objects from that state given as
+valid masks and template Jacobians), the host bookkeeping of the frontend
+and the backend's graph, and the place recognizer's vocabulary and index. These functions build the port's objects from that state given as
 numpy arrays — the form a test gets from the JAX package with ``np.asarray``
 — so both frameworks can be put in the same state and stepped side by side.
 """
 
 from __future__ import annotations
+
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ import torch
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.models.ba_solver import BAProblem
 from scavislam_tpu_torch.models.map_store import PointTable, PoseTable
+from scavislam_tpu_torch.models.placerec import Place, PlaceRecognizer
 from scavislam_tpu_torch.models.slam_graph import (
     FeatureTable,
     GraphEdge,
@@ -140,3 +143,37 @@ def load_graph_state(graph, vertices, points, edges, double_window,
     graph.active_points = set(active_points)
     graph.outer_points = set(outer_points)
     return graph
+
+
+def vocabulary(vocab, device=None) -> torch.Tensor:
+    """A (K, 128) BoW vocabulary (e.g. the ``vocab`` array of
+    ``scavislam_tpu/data/vocabulary.npz``) as an f32 tensor on `device`."""
+    return tensor(np.asarray(vocab, np.float32), device, torch.float32)
+
+
+def _place(p) -> Place:
+    return Place(
+        int(p.kf_id), np.array(p.words, np.int64), np.array(p.desc, np.float32),
+        np.array(p.uvd, np.float32), np.array(p.xyz, np.float32),
+        {int(k) for k in p.exclude},
+        padded=None if p.padded is None else (
+            np.array(p.padded[0], np.float32), np.array(p.padded[1], np.float32),
+            np.array(p.padded[2], bool)))
+
+
+def place_recognizer(cam, vocab, location_map, inverted_index,
+                     word_doc_count, device=None, **kwargs) -> PlaceRecognizer:
+    """A port PlaceRecognizer holding a twin recognizer's index: its
+    `location_map` (kf id -> Place with words, desc, uvd, xyz, exclude and
+    the padded views), `inverted_index` (word -> {kf id: count}) and
+    `word_doc_count`, all numpy and dicts, keeping every container's order;
+    `kwargs` go to the constructor (monitor, thresholds, idf_mode)."""
+    pr = PlaceRecognizer(cam, vocabulary(vocab, device), device=device,
+                         **kwargs)
+    pr.location_map = {int(k): _place(p) for k, p in location_map.items()}
+    pr.inverted_index = defaultdict(dict, {
+        int(w): {int(k): int(c) for k, c in post.items()}
+        for w, post in inverted_index.items()})
+    pr.word_doc_count = defaultdict(int, {
+        int(w): int(c) for w, c in word_doc_count.items()})
+    return pr

@@ -13,8 +13,7 @@ renderer to f32 rounding in their geometry (depth, disparity) but only
 statistically in their texture, wherever two libraries' f32 sin differ in
 the last bit.
 
-Not ported yet: ``Degradation``, free-standing boxes and spheres, and the
-``orbit`` / ``out_and_back`` / ``spin`` / ``still`` trajectories.
+Not ported yet: ``Degradation`` and free-standing boxes and spheres.
 """
 
 from __future__ import annotations
@@ -165,6 +164,24 @@ def make_trajectory(n_frames: int, kind: str = "forward_arc",
         if kind == "forward_arc":
             t_wc = np.array([0.6 * np.sin(s * 1.2), -0.1 * s, 1.8 * s])
             yaw = 0.15 * np.sin(s * 2.0)
+        elif kind == "orbit":
+            t_wc = np.array([1.2 * np.sin(s * 2.4), 0.0,
+                             1.2 * (1 - np.cos(s * 2.4))])
+            yaw = -0.5 * s
+        elif kind == "out_and_back":
+            # drive forward, then return to the start
+            total = max((n_frames - 1) * step, 1e-6)
+            half = total / 2.0
+            p = s / half if s <= half else max(total - s, 0.0) / half
+            t_wc = np.array([0.3 * np.sin(p * 1.5), 0.0, 2.2 * p])
+            yaw = 0.1 * np.sin(p * 3.0)
+        elif kind == "spin":
+            # in-place 360-degree yaw (with closed_box()): the revisit of the
+            # initial heading is a pure appearance loop, the frames half-way
+            # through share no covisibility with the start
+            t_wc = np.array([0.05 * np.sin(s * 6.28), 0.0,
+                             0.05 * (1 - np.cos(s * 6.28))])
+            yaw = 2.0 * np.pi * s
         elif kind == "wander":
             # long non-self-revisiting Lissajous path inside a closed box,
             # starting at the origin, yaw ~0.1 deg/frame at step 0.015
@@ -174,8 +191,11 @@ def make_trajectory(n_frames: int, kind: str = "forward_arc",
                 2.0 * (np.sin(0.41 * s + 1.0) - np.sin(1.0)),
             ])
             yaw = 0.6 * np.sin(0.23 * s)
+        elif kind == "still":
+            t_wc = np.zeros(3)
+            yaw = 0.0
         else:
-            raise ValueError(f"trajectory kind {kind!r} is not ported yet")
+            raise ValueError(kind)
         cy, sy = np.cos(yaw), np.sin(yaw)
         R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], dtype=np.float32)
         T_wc = SE3(torch.as_tensor(R_wc),

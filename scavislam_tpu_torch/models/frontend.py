@@ -27,9 +27,13 @@ the in-flight pipelined frames by a right-multiplied correction. Each
 finalized keyframe packet carries a CUDA event (``ready_event``) recorded on
 the frontend's stream, which the backend's stream waits on.
 
-Not ported yet: ``pr_vocab`` (waits for loop closure) and ``draw_data``.
-Rectification is not ported: a config with ``framepipe.rectify_frame`` set
-is refused.
+Place recognition: with ``pr_vocab`` set (SlamSystem sets it to the
+recognizer's vocabulary), every keyframe spawn also computes the keyframe's
+bag-of-words block on the device, and it comes home in the spawn payload's
+one download as the packet's ``pr_packed``.
+
+Not ported yet: ``draw_data``. Rectification is not ported: a config with
+``framepipe.rectify_frame`` set is refused.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from scavislam_tpu_torch.models.map_store import (
     PoseTable,
     scatter_psi,
 )
+from scavislam_tpu_torch.ops.descriptors import BOW_COLS, BOW_KEYPOINTS
 from scavislam_tpu_torch.utils.config import Config
 
 # fixed scatter capacities of the neighborhood adoption: one shape per site
@@ -123,7 +128,10 @@ class AddToOptimizer:
     disp: object = None
     points_snapshot: object = None
     poses_snapshot: object = None
-    pr_packed: np.ndarray = None  # place-recognition block (not ported yet)
+    # the keyframe's place-recognition block (ops.descriptors.bow_describe:
+    # (BOW_KEYPOINTS, BOW_COLS)) when the frontend has a pr_vocab; the
+    # place recognizer then indexes it with no device work of its own
+    pr_packed: np.ndarray = None
     # CUDA event recorded on the frontend's stream when the packet was
     # finalized; the backend's stream waits on it (None on the CPU)
     ready_event: object = None
@@ -158,6 +166,9 @@ class StereoFrontend:
         self.neighborhood = None
         self.to_optimizer_stack: list[AddToOptimizer] = []
         self.per_mon = None  # optional named-stage timer (set by SlamSystem)
+        # (K, 128) BoW vocabulary tensor on this frontend's device: set, the
+        # keyframe spawn also computes the place-recognition block
+        self.pr_vocab = None
         # when set to a list, process_frame_pipelined appends one
         # (frame_id, dispatch_s, fetch_wait_s, consume_s) tuple per frame
         self.timing_log = None
@@ -345,7 +356,8 @@ class StereoFrontend:
         self._R_cw = T_np[0].copy()
         self._t_cw = T_np[1].copy()
 
-        new_ids, new_psi, new_lvl, new_uvu = self._spawn(out, kf_id, None)
+        new_ids, new_psi, new_lvl, new_uvu, pr_packed = self._spawn(
+            out, kf_id, None)
         self.kf_point_ids[kf_id] = new_ids
         self.covis[kf_id] = {}
         self.keyframe_map[kf_id] = {"T_kw": T_np}
@@ -355,7 +367,7 @@ class StereoFrontend:
             np.zeros(0, np.int64), {},
             pyr=out.pyr, disp=out.disp,
             points_snapshot=self.points, poses_snapshot=self.poses,
-            ready_event=self._ready_event(),
+            pr_packed=pr_packed, ready_event=self._ready_event(),
         )
         self.to_optimizer_stack.append(pkt)
         return pkt
@@ -751,17 +763,19 @@ class StereoFrontend:
             self._cam_params, self._cam_statics,
             self.levels, tuple(caps),
             float(self.cfg.frontend.newpoint_clearance), TRACKED_CAP,
+            self.pr_vocab,
         )
         for l, cap in enumerate(caps):
             ids = np.arange(starts[l], starts[l] + cap, dtype=np.int64)
             self._meta_anchor[ids] = kf_id
             self._meta_level[ids] = l
         return {"kf_id": kf_id, "caps": caps, "starts": starts,
-                "fut": Fetch(payloads)}
+                "pr": self.pr_vocab is not None, "fut": Fetch(payloads)}
 
     def _spawn_finalize(self, rec):
         """Read the spawn payload's fetch: exact per-slot validity. Returns
-        (ids, psi, levels, uvu0)."""
+        (ids, psi, levels, uvu0, pr_packed); pr_packed is the keyframe's BoW
+        block, or None without a pr_vocab."""
         payloads = rec["fut"].result()
         caps, starts = rec["caps"], rec["starts"]
         all_ids, all_psi, all_lvl, all_uvu = [], [], [], []
@@ -779,8 +793,12 @@ class StereoFrontend:
             all_psi.append(psi[ok])
             all_lvl.append(np.full(int(ok.sum()), l, np.int64))
             all_uvu.append(uvu0[ok])
+        pr_packed = None
+        if rec["pr"]:
+            pr_packed = payloads[off: off + BOW_KEYPOINTS * BOW_COLS].reshape(
+                BOW_KEYPOINTS, BOW_COLS)
         return (np.concatenate(all_ids), np.concatenate(all_psi),
-                np.concatenate(all_lvl), np.concatenate(all_uvu))
+                np.concatenate(all_lvl), np.concatenate(all_uvu), pr_packed)
 
     def _spawn(self, out: FrontendStepOut, kf_id: int, tracked_obs):
         return self._spawn_finalize(
@@ -851,7 +869,8 @@ class StereoFrontend:
 
     def _finalize_keyframe(self, rec, pkt_args) -> AddToOptimizer:
         """Consume the spawn payload, build + queue the backend packet."""
-        new_ids, new_psi, new_lvl, new_uvu = self._spawn_finalize(rec)
+        new_ids, new_psi, new_lvl, new_uvu, pr_packed = \
+            self._spawn_finalize(rec)
         kf_id = pkt_args["kf_id"]
         self.kf_point_ids[kf_id] = np.concatenate(
             [new_ids, pkt_args["tracked_ids"]])
@@ -862,7 +881,7 @@ class StereoFrontend:
             pkt_args["tracked_levels"], pkt_args["strengths"],
             pyr=pkt_args["pyr"], disp=pkt_args["disp"],
             points_snapshot=self.points, poses_snapshot=self.poses,
-            ready_event=self._ready_event(),
+            pr_packed=pr_packed, ready_event=self._ready_event(),
         )
         self.to_optimizer_stack.append(pkt)
         self._ready_packets.append(pkt)

@@ -46,6 +46,7 @@ from scavislam_tpu_torch.models.matcher import (
     qpack_patches,
 )
 from scavislam_tpu_torch.models.pose_optimizer import motion_only_ba
+from scavislam_tpu_torch.ops.descriptors import bow_describe
 from scavislam_tpu_torch.ops.fast import detect_corners_grid
 from scavislam_tpu_torch.ops.image import (
     bilinear_sample,
@@ -536,11 +537,17 @@ def spawn_points_step(
     levels: int = 3,
     caps: tuple = (320, 96, 32),
     clearance: float = 2.0,
+    pr_vocab=None,  # (K, 128) BoW vocabulary: append the place-recognition
+    # describe block of this keyframe to the payload
 ):
     """Detect corners per level, gate by disparity + clearance from tracked
     observations, back-project to anchored psi, capture 16x16 source
     patches, and write all blocks into the point table (parity:
-    addMorePoints). Returns (new_points_table, one packed payload vector)."""
+    addMorePoints). With `pr_vocab` the payload also carries the keyframe's
+    ``bow_describe`` block (BOW_KEYPOINTS x BOW_COLS, row-major), so the
+    place recognizer indexes it with no device work of its own (the describe
+    half of placerecognizer.cpp:222-246). Returns (new_points_table, one
+    packed payload vector)."""
     payloads = []
     offs = torch.as_tensor(_patch_offsets_int(SOURCE_PATCH), device=disp.device)
     for l in range(levels):
@@ -585,13 +592,16 @@ def spawn_points_step(
         )
         payloads.append(torch.cat(
             [psi.reshape(-1), uvu0.reshape(-1), ok_k.to(torch.float32)]))
+    if pr_vocab is not None:
+        payloads.append(bow_describe(
+            pyr[0], disp, pr_vocab, cam_params[0], mono=False).reshape(-1))
     return points, torch.cat(payloads)
 
 
 def spawn_points_step_packed(
     pyr, disp, packed: np.ndarray, points: PointTable, cam_params,
     cam_statics, levels: int = 3, caps: tuple = (320, 96, 32),
-    clearance: float = 2.0, tracked_cap: int = 1024,
+    clearance: float = 2.0, tracked_cap: int = 1024, pr_vocab=None,
 ):
     """spawn_points_step behind ONE host->device upload. `packed` is the
     twin's host f32 layout [tracked_uv0.ravel() (2T) | tracked_valid (T) |
@@ -606,5 +616,5 @@ def spawn_points_step_packed(
     kf_id = int(packed[3 * T + levels])
     return spawn_points_step(
         pyr, disp, uv0, t_val, points, starts, kf_id, cam_params,
-        cam_statics, levels, caps, clearance,
+        cam_statics, levels, caps, clearance, pr_vocab,
     )

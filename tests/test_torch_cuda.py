@@ -1,5 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions. Every test here needs a CUDA card and skips without one.
+PyTorch versions, and the port's paths on the card (the backend's solve,
+the place recognizer's describe and geometric check, threaded SlamSystem
+runs) against the CPU. Every test here needs a CUDA card and skips without
+one.
 
 This file imports no JAX (the machine with the card has none), so on a card:
 
@@ -306,5 +309,104 @@ def test_threaded_slam_system_on_card(cuda_device):
     assert len(system.trajectory) == n
     assert sorted(g.vertices) == list(range(system.frontend.next_kf))
     assert len(g.solve_log) >= 1
+    traj = sorted(system.trajectory, key=lambda e: e[0])
+    assert ate_rmse(traj, [frames[i]["T_cw_gt"] for i, _ in traj]) < 0.05
+
+
+def _describe_pair(device, vocab):
+    """bow_describe of frames 0 and 3 of the forward arc on `device`, the
+    frames rendered on the CPU (the renderer's texture hash differs between
+    devices in the last bits of sin)."""
+    from scavislam_tpu_torch.ops.descriptors import bow_describe
+    seq = SyntheticSequence(CAM, n_frames=4, device="cpu")
+    cam_params = (CAM.focal, CAM.pp[0], CAM.pp[1], CAM.baseline)
+    v = torch.as_tensor(vocab, device=device)
+    return [bow_describe(f["left"].to(device), f["disp_gt"].to(device), v,
+                         cam_params)
+            for f in (seq.frame(0), seq.frame(3))]
+
+
+@pytest.mark.cuda
+def test_bow_describe_on_card_matches_cpu(cuda_device):
+    # the same frames described on the card and on the CPU: valid and
+    # (u, v, d) equal, descriptors and xyz within 1e-5, words equal on
+    # >= 99% of the valid rows
+    from scavislam_tpu_torch.models.placerec import default_vocabulary
+    vocab = default_vocabulary()
+    for pg, pc in zip(_describe_pair(cuda_device, vocab),
+                      _describe_pair("cpu", vocab)):
+        pg, pc = pg.cpu().numpy(), pc.numpy()
+        valid = pc[:, -1] > 0.5
+        np.testing.assert_array_equal(pg[:, -1], pc[:, -1])
+        np.testing.assert_array_equal(pg[:, 129:132], pc[:, 129:132])
+        np.testing.assert_allclose(pg[valid, 1:129], pc[valid, 1:129],
+                                   atol=1e-5)
+        np.testing.assert_allclose(pg[valid, 132:135], pc[valid, 132:135],
+                                   atol=1e-5, rtol=1e-6)
+        assert (pg[valid, 0] == pc[valid, 0]).mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_geometric_check_on_card_matches_cpu(cuda_device):
+    # the geometric-check program on the card and on the CPU with the same
+    # hypotheses: the same match and inlier counts, R and t within 1e-4;
+    # the recognizer enqueues it with no synchronizing call
+    from scavislam_tpu_torch.models.placerec import (
+        PlaceRecognizer,
+        _geom_check_device,
+        default_vocabulary,
+        unpack_bow,
+    )
+    vocab = default_vocabulary()
+    blocks = [p.numpy() for p in _describe_pair("cpu", vocab)]
+    arrays = []
+    for b in blocks:
+        _, desc, _, xyz, valid = unpack_bow(b)
+        arrays += [desc, xyz, valid]
+    g = torch.Generator()
+    g.manual_seed(7)
+    idx = torch.randint(0, len(blocks[0]), (256, 3), generator=g)
+    cam_params = (CAM.focal, CAM.pp[0], CAM.pp[1], CAM.baseline)
+    outs = [_geom_check_device(
+        idx.to(dev), *[torch.as_tensor(a, device=dev) for a in arrays],
+        cam_params, 3.0).cpu().numpy() for dev in (cuda_device, "cpu")]
+    assert outs[0][12:].tolist() == outs[1][12:].tolist()
+    assert outs[1][13] > 30
+    np.testing.assert_allclose(outs[0][:12], outs[1][:12], atol=1e-4)
+    pr = PlaceRecognizer(CAM, vocab, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = pr._check_dispatch(*arrays)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fut.result()[13] > 30
+
+
+@pytest.mark.cuda
+def test_threaded_slam_system_with_loop_closure_on_card(cuda_device):
+    # 20 frames threaded and pipelined with loop closure on (the default):
+    # every frame tracked, every keyframe indexed from its spawn's pr_packed
+    # block (no describe by the recognizer)
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem, ate_rmse
+    n = 20
+    seq = SyntheticSequence(CAM, n_frames=n, device=cuda_device)
+    frames = [seq.frame(i) for i in range(n)]
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, ui=dataclasses.replace(cfg.ui,
+                                                          parallax_thr=0.1))
+    system = SlamSystem(CAM, cfg, threaded=True, pipelined=True,
+                        pipeline_depth=3, pr_lossless=True)
+    try:
+        system.process_first_frame(frames[0])
+        for f in frames[1:]:
+            assert system.process_frame(f)
+        system.finish()
+    finally:
+        system.shutdown()
+    pr = system.place_recognizer
+    assert not system.lost and len(system.trajectory) == n
+    assert pr.counters["indexed"] == system.frontend.next_kf >= 2
+    assert pr.counters["described"] == 0
     traj = sorted(system.trajectory, key=lambda e: e[0])
     assert ate_rmse(traj, [frames[i]["T_cw_gt"] for i, _ in traj]) < 0.05

@@ -1,18 +1,22 @@
-"""The port's SlamSystem (frontend + backend) against the JAX package's on
-the same frames, on the CPU: 12 frames unthreaded with the configuration of
-tests/test_backend_integration.py's run_system, synchronous and pipelined
-at depth 2; neighborhood adoption and reseed from one shared state; and
-the options the port refuses.
+"""The port's SlamSystem (frontend + backend + place recognizer) against
+the JAX package's on the same frames, on the CPU: 12 frames unthreaded with
+the configuration of tests/test_backend_integration.py's run_system,
+synchronous and pipelined at depth 2, with loop closure off and on;
+neighborhood adoption and reseed from one shared state; and the device
+default of the entry points.
 
 The JAX side hands its fetches and uploads to thread pools; here they get
 an executor that runs inline and returns completed futures, so both sides
 see every result landed at once and step deterministically (the port's
-fetches complete at once on the CPU).
+fetches complete at once on the CPU). With loop closure on, the port's
+recognizer draws the JAX recognizer's RANSAC hypotheses, replayed from its
+key chain (JaxDraws, from tests/test_torch_placerec.py).
 """
 
 import dataclasses
 from concurrent.futures import Future
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -25,9 +29,12 @@ from scavislam_tpu.utils.config import Config as JConfig
 from scavislam_tpu_torch import interop
 from scavislam_tpu_torch.models.backend import Backend
 from scavislam_tpu_torch.models.frontend import StereoFrontend as TFrontend
+from scavislam_tpu_torch.models.placerec import (PlaceRecognizer,
+                                                 random_vocabulary)
 from scavislam_tpu_torch.models.slam_graph import SlamGraph
 from scavislam_tpu_torch.pipeline import slam_system as tss
 from scavislam_tpu_torch.utils.config import Config as TConfig
+from test_torch_placerec import JaxDraws
 
 J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
@@ -79,11 +86,28 @@ def _host(f):
     return {"frame_id": f["frame_id"], "left": f["left"], "right": f["right"]}
 
 
+def _record_best(pr):
+    """Keep every add_location's last_best (the query's best candidate)."""
+    pr.best_log = []
+    add = pr.add_location
+
+    def add_location(data):
+        loop = add(data)
+        pr.best_log.append(pr.last_best)
+        return loop
+
+    pr.add_location = add_location
+
+
 def _run(system, frames):
     if isinstance(system, jss.SlamSystem):
         system.frontend._fetch_pool = _InlineExecutor()
         system.backend.graph._fetch_pool = _InlineExecutor()
         system.backend._reg_pool = _InlineExecutor()
+    elif system.place_recognizer is not None:
+        system.place_recognizer.hypotheses = JaxDraws(jax.random.PRNGKey(42))
+    if system.place_recognizer is not None:
+        _record_best(system.place_recognizer)
     system.process_first_frame(_host(frames[0]))
     for f in frames[1:]:
         assert system.process_frame(_host(f)), f["frame_id"]
@@ -91,9 +115,9 @@ def _run(system, frames):
     return system
 
 
-def _systems(frames, pipelined):
-    kw = dict(threaded=False, enable_loop_closure=False, pipelined=pipelined,
-              pipeline_depth=2 if pipelined else None)
+def _systems(frames, pipelined, loop_closure=False):
+    kw = dict(threaded=False, enable_loop_closure=loop_closure,
+              pipelined=pipelined, pipeline_depth=2 if pipelined else None)
     js = _run(jss.SlamSystem(J_CAM, _cfg(JConfig), **kw), frames)
     ts = _run(tss.SlamSystem(T_CAM, _cfg(TConfig), device="cpu", **kw),
               frames)
@@ -108,6 +132,12 @@ def sync_runs(frames):
 @pytest.fixture(scope="module")
 def pipe_runs(frames):
     return _systems(frames, pipelined=True)
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["sync", "pipelined"])
+def lc_runs(request, frames):
+    return _systems(frames, pipelined=request.param, loop_closure=True)
 
 
 def _ate(system, frames):
@@ -261,9 +291,54 @@ def test_reseed_from_shared_state(sync_runs):
     np.testing.assert_array_equal(tf._t_cak, jf._t_cak)
 
 
-def test_loop_closure_refused():
-    with pytest.raises(NotImplementedError, match="enable_loop_closure=False"):
-        tss.SlamSystem(T_CAM, TConfig(), device="cpu")
+def test_loop_closure_run_matches_jax(lc_runs, frames):
+    # loop closure on, as the twin defaults: the same keyframes,
+    # trajectory and ATE as the loop-closure-off runs hold, the same
+    # indexed places, every place from its keyframe's pr_packed block (no
+    # describe of its own), and every query's best candidate equal with its
+    # score within 1e-4 relative
+    js, ts = lc_runs
+    _assert_same_run(js, ts, frames)
+    jp, tp = js.place_recognizer, ts.place_recognizer
+    assert list(tp.location_map) == list(jp.location_map)
+    assert sorted(tp.location_map) == sorted(ts.frontend.keyframe_map)
+    assert tp.counters["indexed"] == jp.counters["indexed"] == len(
+        tp.location_map)
+    assert tp.counters["described"] == 0
+    assert len(tp.best_log) == len(jp.best_log) == len(tp.location_map)
+    for bt, bj in zip(tp.best_log, jp.best_log):
+        assert (bt is None) == (bj is None)
+        if bj is not None:
+            assert bt[0] == bj[0]
+            np.testing.assert_allclose(bt[1], bj[1], rtol=1e-4)
+    assert ts.closed_loops == js.closed_loops
+    assert not ts.lost and ts.relocalizations == 0
+
+
+def test_loop_closure_places_match_jax(lc_runs):
+    # each place's pr_packed block within the bow_describe tolerances:
+    # valid and (u, v) equal, descriptors within 1e-5 abs, words equal on
+    # >= 99% of the valid rows; d and xyz within 1e-5 relative (the block's
+    # input disparity is the frame step's, which agrees with the twin's to
+    # float rounding, not bit for bit: sub-pixel fits differ by an ulp)
+    js, ts = lc_runs
+    same = total = 0
+    for k, pj in js.place_recognizer.location_map.items():
+        pt = ts.place_recognizer.location_map[k]
+        dj, xj, vj = (np.asarray(a) for a in pj.padded)
+        dt, xt, vt = pt.padded
+        np.testing.assert_array_equal(vt, vj)
+        assert vj.sum() > 50
+        np.testing.assert_allclose(dt[vj], dj[vj], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(xt[vj], xj[vj], atol=1e-6, rtol=1e-5)
+        np.testing.assert_array_equal(pt.uvd[:, :2], np.asarray(pj.uvd)[:, :2])
+        np.testing.assert_allclose(pt.uvd[:, 2], np.asarray(pj.uvd)[:, 2],
+                                   atol=1e-6, rtol=1e-5)
+        assert pt.exclude == pj.exclude
+        same += int((pt.words == np.asarray(pj.words)).sum())
+        total += len(pj.words)
+    print(f"pr_packed words equal on {same}/{total} valid rows")
+    assert same >= 0.99 * total, (same, total)
 
 
 ENTRY_POINTS = {
@@ -271,6 +346,8 @@ ENTRY_POINTS = {
         T_CAM, enable_loop_closure=False, **kw),
     "Backend": lambda **kw: Backend(T_CAM, **kw),
     "SlamGraph": lambda **kw: SlamGraph(T_CAM, **kw),
+    "PlaceRecognizer": lambda **kw: PlaceRecognizer(
+        T_CAM, random_vocabulary(), **kw),
 }
 
 
