@@ -83,7 +83,30 @@ non-zero before the result line):
 10. relocalize — tests/test_relocalization.py's kidnap on the card,
    unthreaded at 256x192 in the default room: 10 frames, 3 noise frames ->
    lost, frame 5 again -> one relocalization with position error < 0.25
-   m, 3 more frames -> error < 0.08 m.
+   m, 3 more frames -> error < 0.08 m;
+11. disk    — the disk-sequence entry point, in a temporary directory at
+   512x384 with Config() defaults. (a) Phase 4's 80 frames written as a New
+   College tree (P5 `...-rectified-{left,right}.pnm` over two segment
+   directories, a reference-format .cfg) and run through
+   `scavislam_tpu_torch.apps.stereo_slam.main([cfg, "--threaded",
+   "--pipelined", "--pipeline-depth", "3"])` (loop closure on) after a
+   12-frame warm-up run: 80/80 tracked, ATE < 0.05 m from the written
+   trajectory file, >= 2 keyframes, one single-image launch per frame;
+   frames/s beside phase 8's loop-closure-on run and the frame loop's wait
+   on the grabber. (b) The grabber alone (native decode + prefetch to the
+   card, no SLAM): frames/s, decode ms and upload ms (CUDA events) per
+   frame; every stack as the frame step receives it torch.equal to the
+   files' bytes. (c) The same 80 frames recorded as an RGB-D dump (left +
+   exact float disparity) by apps/dump_sequence.record and replayed through
+   the CLI (FileGrabber(disp_img=True, device_prefetch=True) into the
+   threaded, pipelined SlamSystem): 80/80, ATE < 0.05 m, no block-matching
+   launch. (d) Rectification: with zero distortion the rectified stack is
+   torch.equal to its input; 40 frames distorted with k1 = -0.04, k2 = 0.01
+   on both eyes (each distorted pixel samples the clean render at its
+   undistorted coordinate, 5 fixed-point iterations) run with
+   framepipe.rectify_frame on: 40/40, ATE < 0.05 m (beside it, unchecked,
+   the same frames with rectify off); _rectify_stack's device ms (CUDA
+   events, 25 runs).
 
 After the phases, the device time of each kernel of one single-image call
 (torch.profiler; last, so that its tracing cannot slow the timed phases).
@@ -91,11 +114,15 @@ The last three lines are the per-kernel JSON record, the card's name and
 power limit, and the result line.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -602,6 +629,250 @@ def _phase_relocalize(cfg, dev):
         _fail(f"relocalize: kernel launches {launches} != {fed} frames")
 
 
+RECT_FRAMES = 40
+RECT_DIST = (-0.04, 0.01, 0.0, 0.0, 0.0)  # (k1, k2, p1, p2, k3), both eyes
+
+
+def _write_pnm(path, img):
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (w, h))
+        f.write(img.tobytes())
+
+
+def _read_pnm(path):
+    """A P5 file's pixels (the header as _write_pnm writes it)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, w, h, _maxval, pix = data.split(maxsplit=4)
+    if magic != b"P5":
+        _fail(f"disk: {path} is not P5")
+    return np.frombuffer(pix, np.uint8).reshape(int(h), int(w))
+
+
+def _u8(x):
+    return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _cfg_text(cfg, framepipe):
+    """A reference-format .cfg: the camera of `cfg` and framepipe keys."""
+    c = cfg.cam
+    lines = [f"cam.width = {c.width};", f"cam.height = {c.height};",
+             f"cam.f = {c.f};", f"cam.px = {c.px};", f"cam.py = {c.py};",
+             f"cam.baseline = {c.baseline};"]
+    lines += [f"framepipe.{k} = {v};" for k, v in framepipe.items()]
+    return "\n".join(lines) + "\n"
+
+
+def _write_newcollege(root, frames, cfg):
+    """frames as the reference's New College tree: timestamped P5 pairs
+    over two segment directories, and a .cfg pointing at them."""
+    segs = [os.path.join(root, "StereoImages_1225720041_to_1225720118"),
+            os.path.join(root, "StereoImages_1225720118_to_1225720193")]
+    for d in segs:
+        os.makedirs(d)
+    n = len(frames)
+    for i, f in enumerate(frames):
+        base = os.path.join(segs[i // (n // 2 + 1)],
+                            f"StereoImage__{1225720041.455302 + 0.05 * i:.6f}"
+                            "-rectified-")
+        for side in ("left", "right"):
+            _write_pnm(base + f"{side}.pnm", _u8(f[side]).cpu().numpy())
+    path = os.path.join(root, "newcollege.cfg")
+    with open(path, "w") as fh:
+        fh.write(_cfg_text(cfg, {"path_str": root,
+                                 "base_str": ".*rectified.*",
+                                 "format_str": "pnm", "right_img": 1}))
+    return path
+
+
+def _cli(args):
+    """apps/stereo_slam.main with its JSON summary captured, not printed;
+    returns the summary."""
+    from scavislam_tpu_torch.apps import stereo_slam
+    with contextlib.redirect_stdout(io.StringIO()):
+        return stereo_slam.main(args)
+
+
+def _traj_ate(path, frames):
+    """(frame ids, ATE) of a trajectory file the CLI wrote (rows: frame id,
+    t, rotation log) against the frames' ground truth."""
+    from scavislam_tpu_torch.core.lie import SO3, PoseRT
+    rows = np.atleast_2d(np.loadtxt(path))
+    R = SO3.exp(torch.as_tensor(rows[:, 4:7], dtype=torch.float32)).R
+    est = [PoseRT(R[k].numpy().astype(np.float64), r[1:4])
+           for k, r in enumerate(rows)]
+    fids = [int(r[0]) for r in rows]
+    return fids, _ate(est, [frames[i]["T_cw_gt"] for i in fids])
+
+
+def _distort_frames(cam, frames, dev):
+    """Each frame as a camera with RECT_DIST would see it: a distorted pixel
+    samples the clean render bilinearly at its undistorted coordinate,
+    found by 5 fixed-point iterations (OpenCV's undistortPoints)."""
+    from scavislam_tpu_torch.ops.image import bilinear_sample
+    w, h = cam.size
+    f, (px, py) = float(cam.focal), cam.pp
+    k1, k2 = RECT_DIST[:2]
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    xd, yd = (us - px) / f, (vs - py) / f
+    x, y = xd.copy(), yd.copy()
+    for _ in range(5):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        x, y = xd / radial, yd / radial
+    uv = torch.as_tensor(np.stack([x * f + px, y * f + py], -1)
+                         .astype(np.float32), device=dev)
+    return [{"frame_id": fr["frame_id"], "T_cw_gt": fr["T_cw_gt"],
+             "left": _u8(bilinear_sample(fr["left"], uv)[0]),
+             "right": _u8(bilinear_sample(fr["right"], uv)[0])}
+            for fr in frames]
+
+
+def _phase_disk(cam, cfg, dev, seq, frames, fps_lc):
+    """Phase 11: the disk-sequence entry point. Returns the single-image
+    kernel launches of its checked runs ((a) and (d))."""
+    from scavislam_tpu_torch.apps.dump_sequence import record
+    from scavislam_tpu_torch.io.filegrabber import FileGrabber
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.ops.rectify import Rectifier, _rectify_stack
+    n = len(frames)
+    bm = stereo_bm.block_matching_disparity_bm
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) stereo from disk through the CLI
+        root = os.path.join(tmp, "newcollege")
+        cfg_path = _write_newcollege(root, frames, cfg)
+        out = os.path.join(tmp, "trajectory.txt")
+        args = [cfg_path, "--threaded", "--pipelined", "--pipeline-depth",
+                "3", "--out", out]
+        _cli(args + ["--max-frames", "12"])
+        torch.cuda.synchronize()
+        bm.launches = 0
+        summ = _cli(args)
+        launches_a = bm.launches
+        fids, ate = _traj_ate(out, frames)
+        print(f"disk (a): New College tree through stereo_slam.main "
+              f"(threaded, pipelined depth 3, loop closure on): "
+              f"{summ['frames_processed']} frames processed, {len(fids)} "
+              f"tracked, {summ['keyframes']} keyframes, "
+              f"{summ['closed_loops']} closed loops, ATE {ate:.5f} m, "
+              f"{summ['frames_per_s']:.2f} frames/s over frames 2..{n - 1} "
+              f"(phase 8 in memory, loop closure on: {fps_lc:.2f}), wait in "
+              f"next_frame {summ['grab_wait_ms']:.3f} ms per frame; kernel "
+              f"launches {launches_a} for {n} frames", flush=True)
+        if summ["frames_processed"] != n or fids != list(range(n)):
+            _fail(f"disk (a): {len(fids)}/{n} frames tracked")
+        if not ate < ATE_MAX:
+            _fail(f"disk (a): ATE {ate} m")
+        if summ["keyframes"] < 2:
+            _fail("disk (a): fewer than 2 keyframes")
+        if launches_a != n:
+            _fail(f"disk (a): kernel launches {launches_a} != {n} frames")
+
+        # -- (b) the grabber alone: decode + prefetch, no SLAM
+        from scavislam_tpu_torch.models.frontend import StereoFrontend
+        fe = StereoFrontend(cam, cfg, device=dev)
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = FileGrabber(root, base_pattern=".*rectified.*", fmt="pnm",
+                        device_prefetch=True, device=dev, timing_log=log)
+        got = [fe._prefetched(f) for f in g]  # as the frame step takes them
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        g.close()
+        equal = all(torch.equal(s, torch.as_tensor(np.stack([
+            _read_pnm(lp), _read_pnm(lp.replace("left", "right"))]),
+            device=dev)) for s, lp in zip(got, g.left_files))
+        decode_ms = 1e3 * float(np.mean([d for _, d, _ in log]))
+        upload_ms = float(np.mean([a.elapsed_time(b) for _, _, (a, b) in log]))
+        # the copy alone, with the host's enqueue hidden (_cuda_ms): the
+        # span above also holds the producer thread's time between events
+        pinned = torch.empty(got[0].shape, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty_like(got[0])
+        copy_ms = _cuda_ms(lambda: dst.copy_(pinned, non_blocking=True),
+                           TIMING_RUNS)
+        print(f"disk (b): grabber alone, {len(got)} frames decoded natively "
+              f"and copied to the card in {dt:.3f} s: {len(got) / dt:.1f} "
+              f"frames/s; per frame decode {decode_ms:.3f} ms (host), upload "
+              f"span {upload_ms:.4f} ms (CUDA events around the producer's "
+              f"enqueue), the pinned copy alone {copy_ms:.4f} device ms "
+              f"(median of {TIMING_RUNS}, {tuple(got[0].shape)} "
+              f"{got[0].dtype}); every stack torch.equal to the files' "
+              f"bytes {equal}", flush=True)
+        if len(got) != n or not equal:
+            _fail("disk (b): a prefetched frame differs from its files")
+
+        # -- (c) RGB-D: record left + exact disparity, replay through the CLI
+        dump = os.path.join(tmp, "rgbd")
+        record(({"frame_id": i, "left": fr["left"], "disp_gt": fr["disp_gt"]}
+                for i, fr in ((i, seq.frame(i)) for i in range(n))), dump)
+        rgbd_cfg = os.path.join(tmp, "rgbd.cfg")
+        with open(rgbd_cfg, "w") as fh:
+            fh.write(_cfg_text(cfg, {"path_str": dump, "base_str": "img_.*",
+                                     "format_str": "png", "right_img": 0,
+                                     "disp_img": 1}))
+        out_c = os.path.join(tmp, "trajectory_rgbd.txt")
+        bm.launches = 0
+        summ_c = _cli([rgbd_cfg, "--threaded", "--pipelined",
+                       "--pipeline-depth", "3", "--out", out_c])
+        launches_c = bm.launches
+        fids_c, ate_c = _traj_ate(out_c, frames)
+        print(f"disk (c): RGB-D dump replayed through stereo_slam.main "
+              f"(external disparity, device prefetch): {len(fids_c)}/{n} "
+              f"tracked, {summ_c['keyframes']} keyframes, ATE {ate_c:.5f} m, "
+              f"{summ_c['frames_per_s']:.2f} frames/s, wait in next_frame "
+              f"{summ_c['grab_wait_ms']:.3f} ms per frame; block-matching "
+              f"launches {launches_c}", flush=True)
+        if summ_c["frames_processed"] != n or fids_c != list(range(n)):
+            _fail(f"disk (c): {len(fids_c)}/{n} frames tracked")
+        if not ate_c < ATE_MAX:
+            _fail(f"disk (c): ATE {ate_c} m")
+        if launches_c != 0:
+            _fail(f"disk (c): {launches_c} block-matching launches with "
+                  "external disparity")
+
+    # -- (d) rectification
+    def rcfg(dist, on):
+        return dataclasses.replace(
+            cfg, cam=dataclasses.replace(cfg.cam, dist_left=dist,
+                                         dist_right=dist),
+            framepipe=dataclasses.replace(cfg.framepipe, rectify_frame=on))
+
+    stack = torch.stack([_u8(frames[0]["left"]), _u8(frames[0]["right"])])
+    rect0 = Rectifier(cam, rcfg((0.0,) * 5, True), device=dev)
+    identity = torch.equal(rect0.rectify_stacked(stack), stack)
+    dframes = _distort_frames(cam, frames[:RECT_FRAMES], dev)
+    rect = Rectifier(cam, rcfg(RECT_DIST, True), device=dev)
+    dstack = torch.stack([dframes[0]["left"], dframes[0]["right"]])
+    ms_rect = _cuda_ms(lambda: _rectify_stack(dstack, rect.map_left,
+                                              rect.map_right), TIMING_RUNS)
+    bm.launches = 0
+    on = _run_system(cam, rcfg(RECT_DIST, True), dev, dframes, threaded=True,
+                     pipelined=True, loop_closure=True)
+    launches_d = bm.launches
+    off = _run_system(cam, rcfg(RECT_DIST, False), dev, dframes,
+                      threaded=True, pipelined=True, loop_closure=True)
+    print(f"disk (d): zero-distortion rectify torch.equal to its input "
+          f"{identity}; {RECT_FRAMES} frames distorted with (k1, k2) = "
+          f"{RECT_DIST[:2]}, rectify on: {on['tracked']}/{RECT_FRAMES} "
+          f"tracked, {on['keyframes']} keyframes, ATE {on['ate']:.5f} m, "
+          f"kernel launches {launches_d}; rectify off (unchecked): "
+          f"{off['tracked']}/{RECT_FRAMES} tracked, ATE {off['ate']:.5f} m; "
+          f"_rectify_stack {ms_rect:.4f} device ms per frame (median of "
+          f"{TIMING_RUNS}, {tuple(dstack.shape)} uint8)", flush=True)
+    if not identity:
+        _fail("disk (d): the zero-distortion rectify changed the frame")
+    if on["failed"] is not None or on["tracked"] != RECT_FRAMES:
+        _fail(f"disk (d): {on['tracked']}/{RECT_FRAMES} frames tracked")
+    if not on["ate"] < ATE_MAX:
+        _fail(f"disk (d): ATE {on['ate']} m")
+    if launches_d != RECT_FRAMES:
+        _fail(f"disk (d): kernel launches {launches_d} != {RECT_FRAMES}")
+    return launches_a + launches_d
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
@@ -905,6 +1176,7 @@ def main():
     _time_solve(sys_t["system"].backend.graph)
     _phase_loop(cfg, dev)
     _phase_relocalize(cfg, dev)
+    launches += _phase_disk(cam, cfg, dev, seq, frames, sys_l["fps"])
 
     try:
         dev_us = _kernel_device_us(

@@ -32,8 +32,16 @@ recognizer's vocabulary), every keyframe spawn also computes the keyframe's
 bag-of-words block on the device, and it comes home in the spawn payload's
 one download as the packet's ``pr_packed``.
 
-Not ported yet: ``draw_data``. Rectification is not ported: a config with
-``framepipe.rectify_frame`` set is refused.
+Frames from disk: a frame that carries ``stacked_dev`` (a stack the IO
+layer already copied to the device, ``io.filegrabber.FileGrabber`` with
+``device_prefetch``) is used in place; the frontend's stream waits on the
+frame's ``upload_event`` and records itself on the tensor, so that the
+caching allocator does not hand its memory to a later upload too early.
+With ``framepipe.rectify_frame`` set, every stack is undistorted and
+rectified (``ops.rectify.Rectifier``, maps resident on the device) ahead of
+the frame step, on the synchronous and the pipelined path.
+
+Not ported yet: ``draw_data``.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from scavislam_tpu_torch.models.map_store import (
     scatter_psi,
 )
 from scavislam_tpu_torch.ops.descriptors import BOW_COLS, BOW_KEYPOINTS
+from scavislam_tpu_torch.ops.rectify import Rectifier
 from scavislam_tpu_torch.utils.config import Config
 
 # fixed scatter capacities of the neighborhood adoption: one shape per site
@@ -142,9 +151,6 @@ class StereoFrontend:
 
     def __init__(self, cam: StereoCamera, cfg: Config = None, device=None):
         self.cfg = cfg or Config()
-        if self.cfg.framepipe.rectify_frame:
-            raise NotImplementedError(
-                "framepipe.rectify_frame: rectification is not ported yet")
         self.device = resolve_device(device)
         self.cam = cam
         self.levels = self.cfg.use_n_levels_in_frontent
@@ -193,6 +199,7 @@ class StereoFrontend:
         self._R_cw = np.eye(3, dtype=np.float32)
         self._t_cw = np.zeros(3, np.float32)
         self._num_disp = 16 * self.cfg.ui.num_disp16
+        self._rectifier = Rectifier(cam, self.cfg, device=self.device)
         self.frame_id = -1
 
         self._tracked_ids = np.zeros((0,), np.int64)
@@ -277,20 +284,27 @@ class StereoFrontend:
         use_ext = ext is not None or frame.get("use_gt_disp", False)
         if frame.get("use_gt_disp", False):
             ext = frame["disp_gt"]
-        # ONE stacked (2|3, H, W) tensor, uint8 when no external disparity
-        # plane is needed: host frames are stacked on the host and uploaded
-        # once, device frames are stacked in place
-        left, right = frame["left"], frame.get("right")
-        on_host = not isinstance(left, torch.Tensor)
-        if on_host:
-            left = np.asarray(left)
-            right = np.zeros_like(left) if right is None else np.asarray(right)
-        elif right is None:
-            right = torch.zeros_like(left)
-        planes = ([_as_f32(left), _as_f32(right), _as_f32(ext)] if use_ext
-                  else [_to_u8(left), _to_u8(right)])
-        stacked = (torch.as_tensor(np.stack(planes), device=self.device)
-                   if on_host else torch.stack([p.to(self.device) for p in planes]))
+        if "stacked_dev" in frame:
+            stacked = self._prefetched(frame)
+        else:
+            # ONE stacked (2|3, H, W) tensor, uint8 when no external
+            # disparity plane is needed: host frames are stacked on the host
+            # and uploaded once, device frames are stacked in place
+            left, right = frame["left"], frame.get("right")
+            on_host = not isinstance(left, torch.Tensor)
+            if on_host:
+                left = np.asarray(left)
+                right = (np.zeros_like(left) if right is None
+                         else np.asarray(right))
+            elif right is None:
+                right = torch.zeros_like(left)
+            planes = ([_as_f32(left), _as_f32(right), _as_f32(ext)]
+                      if use_ext else [_to_u8(left), _to_u8(right)])
+            stacked = (torch.as_tensor(np.stack(planes), device=self.device)
+                       if on_host
+                       else torch.stack([p.to(self.device) for p in planes]))
+        # optional undistort + rectify ahead of the frame step
+        stacked = self._rectifier.rectify_stacked(stacked)
         R_cw = (self._dev_R_cw if self._dev_R_cw is not None
                 else torch.as_tensor(self._R_cw, dtype=torch.float32,
                                      device=self.device))
@@ -315,6 +329,17 @@ class StereoFrontend:
         self._dev_R_cw = out.R_cw
         self._dev_t_cw = out.t_cw
         return out
+
+    def _prefetched(self, frame):
+        """A frame's device-resident stack: ordered after its upload on this
+        frontend's stream, and recorded on that stream for the allocator."""
+        stacked = frame["stacked_dev"]
+        if stacked.is_cuda:
+            stream = torch.cuda.current_stream(stacked.device)
+            if frame.get("upload_event") is not None:
+                stream.wait_event(frame["upload_event"])
+            stacked.record_stream(stream)
+        return stacked.to(self.device)
 
     def _empty_prev_state(self, shape):
         h, w = shape

@@ -70,6 +70,29 @@ def sobel_xy(img: torch.Tensor):
     return dx * 0.125, dy * 0.125
 
 
+U8_SCALE = float(np.float32(1.0 / 255.0))
+
+
+def preprocess_frame(img: torch.Tensor, levels: int = NUM_PYR_LEVELS):
+    """uint8 or float image -> {"pyr", "dx", "dy"}: per-level float32
+    pyramid and Sobel gradients. A non-float32 image is normalized as
+    ``x * f32(1/255)``, the multiply the twin's compiled division is."""
+    if img.dtype != torch.float32:
+        img = img.to(torch.float32) * U8_SCALE
+    pyr = build_pyramid(img, levels)
+    grads = [sobel_xy(lvl) for lvl in pyr]
+    return {"pyr": pyr, "dx": tuple(g[0] for g in grads),
+            "dy": tuple(g[1] for g in grads)}
+
+
+def half_sample_disparity(disp: torch.Tensor, _unused=None,
+                          factor: int = 2) -> torch.Tensor:
+    """Decimate a level-0 disparity map to a coarser level without
+    rescaling the values (the level cameras double the baseline, so f*b is
+    level-invariant: core.camera.StereoCamera.scale_level)."""
+    return disp[::factor, ::factor]
+
+
 def float_to_index(x: torch.Tensor) -> torch.Tensor:
     """float -> int32 with XLA's conversion semantics: NaN -> 0, out-of-range
     values saturate (a plain ``.to(int32)`` is undefined there). Callers

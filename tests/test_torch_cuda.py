@@ -410,3 +410,78 @@ def test_threaded_slam_system_with_loop_closure_on_card(cuda_device):
     assert pr.counters["described"] == 0
     traj = sorted(system.trajectory, key=lambda e: e[0])
     assert ate_rmse(traj, [frames[i]["T_cw_gt"] for i, _ in traj]) < 0.05
+
+
+def _pnm_pairs(root, n=6, seed=0):
+    """n P5 stereo pairs under `root` at CAM's size; returns the pixels."""
+    rng = np.random.RandomState(seed)
+    w, h = CAM.size
+    pairs = []
+    for i in range(n):
+        pair = rng.randint(0, 256, (2, h, w)).astype(np.uint8)
+        for side, img in zip(("left", "right"), pair):
+            with open(root / f"img_{i:06d}_{side}.pgm", "wb") as f:
+                f.write(b"P5\n%d %d\n255\n" % (w, h))
+                f.write(img.tobytes())
+        pairs.append(pair)
+    return pairs
+
+
+@pytest.mark.cuda
+def test_prefetched_frames_equal_files_on_card(cuda_device, tmp_path):
+    # the grabber copies each stack on its own stream; the frontend's
+    # stream waits on the frame's event, and what it reads is the files'
+    # bytes
+    from scavislam_tpu_torch.io.filegrabber import FileGrabber
+    pairs = _pnm_pairs(tmp_path)
+    fe = StereoFrontend(CAM, Config(), device=cuda_device)
+    g = FileGrabber(str(tmp_path), base_pattern="img_.*", fmt="pgm",
+                    device_prefetch=True, device=cuda_device)
+    got = []
+    for f in g:
+        assert f["stacked_dev"].is_cuda and f["upload_event"] is not None
+        got.append(fe._prefetched(f))
+    g.close()
+    torch.cuda.synchronize()
+    assert len(got) == len(pairs)
+    for s, want in zip(got, pairs):
+        assert torch.equal(s, torch.as_tensor(want, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_rectify_stack_on_card_matches_cpu(cuda_device):
+    from scavislam_tpu_torch.ops.rectify import _rectify_stack, build_rectify_map
+    f = SyntheticSequence(CAM, n_frames=1, device="cpu").frame(0)
+    stack = torch.stack([(torch.clamp(f[k], 0, 1) * 255 + 0.5).to(torch.uint8)
+                         for k in ("left", "right")])
+    ml = torch.as_tensor(build_rectify_map(CAM, (-0.04, 0.01, 0, 0, 0),
+                                           (0, 0.01, 0)))
+    mr = torch.as_tensor(build_rectify_map(CAM, (0.03, 0, 0, 0, 0), (0, 0, 0)))
+    cpu = _rectify_stack(stack, ml, mr)
+    card = _rectify_stack(stack.to(cuda_device), ml.to(cuda_device),
+                          mr.to(cuda_device)).cpu()
+    diff = (card.to(torch.int32) - cpu.to(torch.int32)).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_grabber_upload_does_not_synchronize(cuda_device, tmp_path):
+    # under sync debug mode "error" a synchronizing call in the producer
+    # raises there, and next_frame re-raises it
+    from scavislam_tpu_torch.io.filegrabber import FileGrabber
+    pairs = _pnm_pairs(tmp_path, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = FileGrabber(str(tmp_path), base_pattern="img_.*", fmt="pgm",
+                        device_prefetch=True, device=cuda_device)
+        frames = list(g)
+        g.close()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(frames) == len(pairs)
+    for f, want in zip(frames, pairs):
+        f["upload_event"].synchronize()
+        assert torch.equal(f["stacked_dev"],
+                           torch.as_tensor(want, device=cuda_device))

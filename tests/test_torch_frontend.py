@@ -234,10 +234,7 @@ def test_tracking_failure_reported(frames):
 
 
 def test_unported_options_raise():
-    cfg = TConfig()
-    with pytest.raises(NotImplementedError, match="rectif"):
-        TFrontend(T_CAM, dataclasses.replace(cfg, framepipe=dataclasses.replace(
-            cfg.framepipe, rectify_frame=True)), device=CPU)
+    # rectification is ported: tests/test_torch_rectify.py
     fe = TFrontend(T_CAM, _cfg(TConfig, 3), device=CPU)
     img = np.zeros((192, 256), np.float32)
     with pytest.raises(NotImplementedError, match="BP/CSBP"):

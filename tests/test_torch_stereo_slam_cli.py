@@ -1,0 +1,227 @@
+"""The port's command line (apps/stereo_slam) and the RGB-D dump replay, on
+the CPU: the CLI over a mock New College tree against the JAX package's
+SlamSystem on the same files (held as tests/test_torch_slam_system.py holds
+the systems: the same keyframes, ATE within max(1% of JAX's, 1e-4 m)), the
+pipelined CLI with the grabber's prefetch, tests/test_full_system.py's
+RGB-D replay through the port's recorder and grabber, the synthetic and
+multistream paths, and the flags whose modules are not ported yet."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from scavislam_tpu.apps.stereo_slam import build_camera as jbuild_camera
+from scavislam_tpu.io.filegrabber import FileGrabber as JFileGrabber
+from scavislam_tpu.pipeline import slam_system as jss
+from scavislam_tpu.utils.config import load_config as jload_config
+from scavislam_tpu_torch.apps import stereo_slam
+from scavislam_tpu_torch.apps.dump_sequence import record
+from scavislam_tpu_torch.core.camera import StereoCamera
+from scavislam_tpu_torch.core.lie import SO3, PoseRT
+from scavislam_tpu_torch.io.filegrabber import FileGrabber
+from scavislam_tpu_torch.io.synthetic import SyntheticSequence
+from scavislam_tpu_torch.pipeline.slam_system import SlamSystem, ate_rmse
+from scavislam_tpu_torch.utils.config import Config
+from test_torch_io import to_u8, write_newcollege_tree
+from test_torch_slam_system import _InlineExecutor
+
+CAM = StereoCamera.create(195.0, (127.0, 95.0), (256, 192), 0.12)
+N_FRAMES = 10
+CPU = "cpu"
+# tests/test_newcollege_ingest.py's run-time knobs, as cfg lines
+EXTRA_CFG = ("ui_parallax_thr = 0.25;\ngraph.inner_window = 5;\n"
+             "graph.outer_window = 20;\n")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    """The mock New College tree (rendered once by the port) and its
+    ground truth."""
+    root = tmp_path_factory.mktemp("newcollege")
+    seq = SyntheticSequence(CAM, n_frames=N_FRAMES, step=0.01, device=CPU)
+    frames = [seq.frame(i) for i in range(N_FRAMES)]
+    cfg = write_newcollege_tree(
+        str(root), [(to_u8(f["left"]), to_u8(f["right"])) for f in frames],
+        256, 192, 195.0, (127.0, 95.0), 0.12)
+    with open(cfg, "a") as fh:
+        fh.write(EXTRA_CFG)
+    return root, cfg, {i: f["T_cw_gt"] for i, f in enumerate(frames)}
+
+
+def read_trajectory(path):
+    """The CLI's trajectory file -> [(frame_id, PoseRT T_cw)]."""
+    rows = np.atleast_2d(np.loadtxt(path))
+    R = SO3.exp(torch.as_tensor(rows[:, 4:7], dtype=torch.float32)).R
+    return [(int(r[0]), PoseRT(R[k].numpy().astype(np.float64), r[1:4]))
+            for k, r in enumerate(rows)]
+
+
+def _ate(traj, gt):
+    return ate_rmse(traj, [gt[fid] for fid, _ in traj])
+
+
+def _cli(tmp_path, *args):
+    out = str(tmp_path / "traj.txt")
+    summary = stereo_slam.main([*args, "--device", CPU, "--out", out])
+    return summary, read_trajectory(out)
+
+
+@pytest.fixture(scope="module")
+def cli_run(tree, tmp_path_factory):
+    _root, cfg, gt = tree
+    tmp = tmp_path_factory.mktemp("cli")
+    return _cli(tmp, cfg, "--no-loop-closure")
+
+
+def test_cli_runs_newcollege_tree(cli_run, tree, capsys):
+    summary, traj = cli_run
+    gt = tree[2]
+    assert summary["frames_processed"] == N_FRAMES
+    assert summary["keyframes"] >= 1 and summary["map_points"] > 0
+    assert [fid for fid, _ in traj] == list(range(N_FRAMES))
+    assert _ate(traj, gt) < 0.05
+    assert summary["frames_per_s"] > 0 and summary["grab_wait_ms"] >= 0
+    assert "ate_rmse_m" not in summary  # no ground truth on disk
+
+
+def test_cli_matches_jax_system_on_the_tree(cli_run, tree):
+    """The JAX SlamSystem on the same files through its own grabber,
+    unthreaded, loop closure off, its pools inline."""
+    summary, traj = cli_run
+    _root, cfg_path, gt = tree
+    cfg = jload_config(cfg_path)
+    g = JFileGrabber(cfg.framepipe.path_str,
+                     base_pattern=cfg.framepipe.base_str,
+                     fmt=cfg.framepipe.format_str,
+                     right_img=cfg.framepipe.right_img)
+    frames = list(g)
+    g.close()
+    js = jss.SlamSystem(jbuild_camera(cfg), cfg, threaded=False,
+                        enable_loop_closure=False)
+    js.frontend._fetch_pool = _InlineExecutor()
+    js.backend.graph._fetch_pool = _InlineExecutor()
+    js.backend._reg_pool = _InlineExecutor()
+    js.process_first_frame(frames[0])
+    for f in frames[1:]:
+        assert js.process_frame(f)
+    js.finish()
+    js.shutdown()
+    assert summary["keyframes"] == len(js.frontend.keyframe_map)
+    assert [fid for fid, _ in traj] == [fid for fid, _ in js.trajectory]
+    a_j = jss.ate_rmse(js.trajectory, [gt[fid] for fid, _ in js.trajectory])
+    a_t = _ate(traj, gt)
+    assert abs(a_t - a_j) <= max(0.01 * a_j, 1e-4), (a_t, a_j)
+
+
+def test_cli_pipelined_with_prefetch(tree, tmp_path):
+    # --pipelined: the grabber stacks every frame (device_prefetch) and the
+    # frontend takes the stack in place; loop closure on, the default
+    _root, cfg, gt = tree
+    summary, traj = _cli(tmp_path, cfg, "--pipelined", "--pipeline-depth",
+                         "2")
+    assert summary["frames_processed"] == N_FRAMES
+    assert sorted(fid for fid, _ in traj) == list(range(N_FRAMES))
+    assert _ate(traj, gt) < 0.05
+
+
+def test_cli_synthetic(tree, tmp_path):
+    _root, cfg, _gt = tree
+    summary, traj = _cli(tmp_path, cfg, "--synthetic", "6",
+                         "--no-loop-closure")
+    assert summary["frames_processed"] == 6 and len(traj) == 6
+    assert summary["ate_rmse_m"] < 0.05
+
+
+def test_cli_max_frames(tree, tmp_path):
+    _root, cfg, _gt = tree
+    summary, traj = _cli(tmp_path, cfg, "--max-frames", "4",
+                         "--no-loop-closure")
+    assert summary["frames_processed"] == 4 and len(traj) == 4
+
+
+def test_cli_streams(tree, tmp_path, capsys):
+    _root, cfg, _gt = tree
+    out = tmp_path / "traj.txt"
+    summary = stereo_slam.main([cfg, "--streams", "2", "--synthetic", "5",
+                                "--device", CPU, "--out", str(out)])
+    assert [s["alive"] for s in summary["per_stream"]] == [True, True]
+    assert [s["frames"] for s in summary["per_stream"]] == [5, 5]
+    assert (tmp_path / "traj_s1.txt").exists()
+    assert json.loads(capsys.readouterr().out)["streams"] == 2
+
+
+def test_cli_streams_mesh_refused(tree):
+    _root, cfg, _gt = tree
+    with pytest.raises(NotImplementedError, match="mesh"):
+        stereo_slam.main([cfg, "--streams", "2", "--streams-mesh", "2",
+                          "--synthetic", "3", "--device", CPU])
+
+
+def test_cli_defaults_to_the_card(tree, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        stereo_slam.main([tree[1]])
+
+
+@pytest.mark.parametrize("flag,module", sorted(stereo_slam._UNPORTED.items()))
+def test_unported_flag_names_its_module(tree, capsys, flag, module):
+    with pytest.raises(SystemExit) as exc:
+        stereo_slam.main([tree[1], "--" + flag.replace("_", "-"), "x.out",
+                          "--device", CPU])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert module in err and "not ported yet" in err
+
+
+def _small_cfg():
+    cfg = Config()
+    return dataclasses.replace(
+        cfg,
+        frontend=dataclasses.replace(cfg.frontend, covis_thr=10),
+        ui=dataclasses.replace(cfg.ui, parallax_thr=0.25),
+        graph=dataclasses.replace(cfg.graph, inner_window=5, outer_window=20))
+
+
+@pytest.mark.parametrize("prefetch", [False, True],
+                         ids=["host", "device_prefetch"])
+def test_rgbd_dump_and_replay(tmp_path, prefetch):
+    """tests/test_full_system.py's RGB-D replay on the port: record with
+    exact disparity, replay through the FileGrabber, track on the external
+    disparity (no stereo matching)."""
+    n = 6
+    seq = SyntheticSequence(CAM, n_frames=n, step=0.02, device=CPU)
+    assert record(iter(seq), str(tmp_path), with_disp=True) == n
+    grabber = FileGrabber(str(tmp_path), base_pattern="img_.*", fmt="png",
+                          right_img=True, disp_img=True,
+                          device_prefetch=prefetch, device=CPU)
+    assert len(grabber) == n
+    system = SlamSystem(CAM, _small_cfg(), threaded=False,
+                        enable_loop_closure=False, device=CPU)
+    fids = []
+    for i, f in enumerate(grabber):
+        assert f["disp"].shape == (192, 256)
+        assert ("stacked_dev" in f) == prefetch
+        if i == 0:
+            system.process_first_frame(f)
+        else:
+            assert system.process_frame(f), f"lost at {i}"
+        fids.append(f["frame_id"])
+    grabber.close()
+    system.shutdown()
+    assert fids == list(range(n))
+    gt = [seq.frame(j)["T_cw_gt"] for j in fids]
+    errs = [np.linalg.norm((PoseRT.from_any(T)
+                            @ PoseRT.from_any(g).inverse()).t)
+            for (_, T), g in zip(system.trajectory, gt)]
+    assert float(np.sqrt(np.mean(np.square(errs)))) < 0.03
