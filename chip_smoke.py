@@ -107,11 +107,33 @@ non-zero before the result line):
    framepipe.rectify_frame on: 40/40, ATE < 0.05 m (beside it, unchecked,
    the same frames with rectify off); _rectify_stack's device ms (CUDA
    events, 25 runs).
+12. stereo methods — belief propagation (stereo method 3) and
+   constant-space BP (method 4), plain PyTorch with no kernel of their own.
+   (a) On phase 3's frame-0 pair at 512x384, binomial3-smoothed as the
+   frame step smooths it, D = 64: BP with (iters, levels) = (5, 4), what
+   the frame step passes for Config()'s (4, 4), and CSBP with (4, 4, 4).
+   Each output finite, (H, W), within [0, 64], its median error against
+   ground truth on valid interior pixels <= 1 px (BP) and <= 1.5 px (CSBP,
+   whole pixels); over 25 runs each the eager call's wall ms and its ms
+   between CUDA events, the replay ms of the call captured as a CUDA graph
+   (the device's own time), the peak memory the call allocates, and its
+   bound: the bytes it must move at 3.35 TB/s (per round the data term and
+   four messages read and four messages written, over every level), beside
+   phase 3's block-matching time. (b) The same functions on a 256x192 crop
+   on the card and on the CPU: BP within 1e-3 px on >= 99% of pixels, CSBP
+   equal on >= 99%. (c) Phase 11's New College tree, 40 frames, with a .cfg
+   that sets stereo_method 3, then one that sets 4, through stereo_slam.main
+   threaded, pipelined at depth 3, loop closure on, after a 6-frame warm-up
+   run: 40/40 tracked, >= 2 keyframes, ATE from the written trajectory
+   < 0.1 m (BP) and < 0.2 m (CSBP: its whole-pixel disparities cost the
+   tracker; it scores ~0.17 m here), no block-matching launch; frames/s
+   beside phase 11 (a)'s.
 
-After the phases, the device time of each kernel of one single-image call
-(torch.profiler; last, so that its tracing cannot slow the timed phases).
-The last three lines are the per-kernel JSON record, the card's name and
-power limit, and the result line.
+After the phases, torch.profiler (last, so that its tracing cannot slow the
+timed phases): the device time of each kernel of one single-image
+block-matching call, and the launches and summed kernel time per BP and
+per CSBP call. The last three lines are the per-kernel JSON record, the
+card's name and power limit, and the result line.
 """
 
 import contextlib
@@ -205,9 +227,9 @@ def _ptxas(log):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _kernel_device_us(fn, runs):
-    """{device kernel name: mean microseconds per call} over `runs` calls
-    of fn, from torch.profiler's CUDA activity."""
+def _kernel_profile(fn, runs):
+    """[(device kernel name, launches per call, microseconds per call)]
+    over `runs` calls of fn, from torch.profiler's CUDA activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -215,8 +237,8 @@ def _kernel_device_us(fn, runs):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: round(e.device_time_total / runs, 2)
-            for e in prof.key_averages() if e.device_time_total}
+    return [(e.key, e.count / runs, e.device_time_total / runs)
+            for e in prof.key_averages() if e.device_time_total]
 
 
 def _ate(est, gt):
@@ -629,6 +651,16 @@ def _phase_relocalize(cfg, dev):
         _fail(f"relocalize: kernel launches {launches} != {fed} frames")
 
 
+BP_FRAMES = 40
+# ATE limits of (c): BP twice the block matcher's (dense, no validity
+# test); CSBP's whole-pixel disparities cost the tracker more: 0.1696 and
+# 0.1707 m in this phase on an H100. The JAX package's CSBP loses as much
+# (0.1907 m on a different sequence, the 40-frame closed-box wander at
+# 256x192, where the port scores the same: tests/test_torch_stereo_bp.py::
+# test_csbp_wander_matches_jax)
+BP_ATE_MAX = {3: 0.1, 4: 0.2}
+BP_OPTS = (5, 4)  # (iters, levels): frontend_step's floor over Config()'s
+CSBP_OPTS = (4, 4, 4)  # Config()'s (iters, levels, nr_plane)
 RECT_FRAMES = 40
 RECT_DIST = (-0.04, 0.01, 0.0, 0.0, 0.0)  # (k1, k2, p1, p2, k3), both eyes
 
@@ -730,108 +762,108 @@ def _distort_frames(cam, frames, dev):
             for fr in frames]
 
 
-def _phase_disk(cam, cfg, dev, seq, frames, fps_lc):
-    """Phase 11: the disk-sequence entry point. Returns the single-image
-    kernel launches of its checked runs ((a) and (d))."""
+def _phase_disk(cam, cfg, dev, seq, frames, fps_lc, tmp):
+    """Phase 11: the disk-sequence entry point, its files under `tmp`.
+    Returns (the single-image kernel launches of its checked runs, (a) and
+    (d); the New College tree's .cfg; (a)'s frames/s)."""
     from scavislam_tpu_torch.apps.dump_sequence import record
     from scavislam_tpu_torch.io.filegrabber import FileGrabber
     from scavislam_tpu_torch.ops import stereo_bm
     from scavislam_tpu_torch.ops.rectify import Rectifier, _rectify_stack
     n = len(frames)
     bm = stereo_bm.block_matching_disparity_bm
-    with tempfile.TemporaryDirectory() as tmp:
-        # -- (a) stereo from disk through the CLI
-        root = os.path.join(tmp, "newcollege")
-        cfg_path = _write_newcollege(root, frames, cfg)
-        out = os.path.join(tmp, "trajectory.txt")
-        args = [cfg_path, "--threaded", "--pipelined", "--pipeline-depth",
-                "3", "--out", out]
-        _cli(args + ["--max-frames", "12"])
-        torch.cuda.synchronize()
-        bm.launches = 0
-        summ = _cli(args)
-        launches_a = bm.launches
-        fids, ate = _traj_ate(out, frames)
-        print(f"disk (a): New College tree through stereo_slam.main "
-              f"(threaded, pipelined depth 3, loop closure on): "
-              f"{summ['frames_processed']} frames processed, {len(fids)} "
-              f"tracked, {summ['keyframes']} keyframes, "
-              f"{summ['closed_loops']} closed loops, ATE {ate:.5f} m, "
-              f"{summ['frames_per_s']:.2f} frames/s over frames 2..{n - 1} "
-              f"(phase 8 in memory, loop closure on: {fps_lc:.2f}), wait in "
-              f"next_frame {summ['grab_wait_ms']:.3f} ms per frame; kernel "
-              f"launches {launches_a} for {n} frames", flush=True)
-        if summ["frames_processed"] != n or fids != list(range(n)):
-            _fail(f"disk (a): {len(fids)}/{n} frames tracked")
-        if not ate < ATE_MAX:
-            _fail(f"disk (a): ATE {ate} m")
-        if summ["keyframes"] < 2:
-            _fail("disk (a): fewer than 2 keyframes")
-        if launches_a != n:
-            _fail(f"disk (a): kernel launches {launches_a} != {n} frames")
+    # -- (a) stereo from disk through the CLI
+    root = os.path.join(tmp, "newcollege")
+    cfg_path = _write_newcollege(root, frames, cfg)
+    out = os.path.join(tmp, "trajectory.txt")
+    args = [cfg_path, "--threaded", "--pipelined", "--pipeline-depth",
+            "3", "--out", out]
+    _cli(args + ["--max-frames", "12"])
+    torch.cuda.synchronize()
+    bm.launches = 0
+    summ = _cli(args)
+    launches_a = bm.launches
+    fids, ate = _traj_ate(out, frames)
+    print(f"disk (a): New College tree through stereo_slam.main "
+          f"(threaded, pipelined depth 3, loop closure on): "
+          f"{summ['frames_processed']} frames processed, {len(fids)} "
+          f"tracked, {summ['keyframes']} keyframes, "
+          f"{summ['closed_loops']} closed loops, ATE {ate:.5f} m, "
+          f"{summ['frames_per_s']:.2f} frames/s over frames 2..{n - 1} "
+          f"(phase 8 in memory, loop closure on: {fps_lc:.2f}), wait in "
+          f"next_frame {summ['grab_wait_ms']:.3f} ms per frame; kernel "
+          f"launches {launches_a} for {n} frames", flush=True)
+    if summ["frames_processed"] != n or fids != list(range(n)):
+        _fail(f"disk (a): {len(fids)}/{n} frames tracked")
+    if not ate < ATE_MAX:
+        _fail(f"disk (a): ATE {ate} m")
+    if summ["keyframes"] < 2:
+        _fail("disk (a): fewer than 2 keyframes")
+    if launches_a != n:
+        _fail(f"disk (a): kernel launches {launches_a} != {n} frames")
 
-        # -- (b) the grabber alone: decode + prefetch, no SLAM
-        from scavislam_tpu_torch.models.frontend import StereoFrontend
-        fe = StereoFrontend(cam, cfg, device=dev)
-        log = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g = FileGrabber(root, base_pattern=".*rectified.*", fmt="pnm",
-                        device_prefetch=True, device=dev, timing_log=log)
-        got = [fe._prefetched(f) for f in g]  # as the frame step takes them
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        g.close()
-        equal = all(torch.equal(s, torch.as_tensor(np.stack([
-            _read_pnm(lp), _read_pnm(lp.replace("left", "right"))]),
-            device=dev)) for s, lp in zip(got, g.left_files))
-        decode_ms = 1e3 * float(np.mean([d for _, d, _ in log]))
-        upload_ms = float(np.mean([a.elapsed_time(b) for _, _, (a, b) in log]))
-        # the copy alone, with the host's enqueue hidden (_cuda_ms): the
-        # span above also holds the producer thread's time between events
-        pinned = torch.empty(got[0].shape, dtype=torch.uint8, pin_memory=True)
-        dst = torch.empty_like(got[0])
-        copy_ms = _cuda_ms(lambda: dst.copy_(pinned, non_blocking=True),
-                           TIMING_RUNS)
-        print(f"disk (b): grabber alone, {len(got)} frames decoded natively "
-              f"and copied to the card in {dt:.3f} s: {len(got) / dt:.1f} "
-              f"frames/s; per frame decode {decode_ms:.3f} ms (host), upload "
-              f"span {upload_ms:.4f} ms (CUDA events around the producer's "
-              f"enqueue), the pinned copy alone {copy_ms:.4f} device ms "
-              f"(median of {TIMING_RUNS}, {tuple(got[0].shape)} "
-              f"{got[0].dtype}); every stack torch.equal to the files' "
-              f"bytes {equal}", flush=True)
-        if len(got) != n or not equal:
-            _fail("disk (b): a prefetched frame differs from its files")
+    # -- (b) the grabber alone: decode + prefetch, no SLAM
+    from scavislam_tpu_torch.models.frontend import StereoFrontend
+    fe = StereoFrontend(cam, cfg, device=dev)
+    log = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = FileGrabber(root, base_pattern=".*rectified.*", fmt="pnm",
+                    device_prefetch=True, device=dev, timing_log=log)
+    got = [fe._prefetched(f) for f in g]  # as the frame step takes them
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    g.close()
+    equal = all(torch.equal(s, torch.as_tensor(np.stack([
+        _read_pnm(lp), _read_pnm(lp.replace("left", "right"))]),
+        device=dev)) for s, lp in zip(got, g.left_files))
+    decode_ms = 1e3 * float(np.mean([d for _, d, _ in log]))
+    upload_ms = float(np.mean([a.elapsed_time(b) for _, _, (a, b) in log]))
+    # the copy alone, with the host's enqueue hidden (_cuda_ms): the
+    # span above also holds the producer thread's time between events
+    pinned = torch.empty(got[0].shape, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty_like(got[0])
+    copy_ms = _cuda_ms(lambda: dst.copy_(pinned, non_blocking=True),
+                       TIMING_RUNS)
+    print(f"disk (b): grabber alone, {len(got)} frames decoded natively "
+          f"and copied to the card in {dt:.3f} s: {len(got) / dt:.1f} "
+          f"frames/s; per frame decode {decode_ms:.3f} ms (host), upload "
+          f"span {upload_ms:.4f} ms (CUDA events around the producer's "
+          f"enqueue), the pinned copy alone {copy_ms:.4f} device ms "
+          f"(median of {TIMING_RUNS}, {tuple(got[0].shape)} "
+          f"{got[0].dtype}); every stack torch.equal to the files' "
+          f"bytes {equal}", flush=True)
+    if len(got) != n or not equal:
+        _fail("disk (b): a prefetched frame differs from its files")
 
-        # -- (c) RGB-D: record left + exact disparity, replay through the CLI
-        dump = os.path.join(tmp, "rgbd")
-        record(({"frame_id": i, "left": fr["left"], "disp_gt": fr["disp_gt"]}
-                for i, fr in ((i, seq.frame(i)) for i in range(n))), dump)
-        rgbd_cfg = os.path.join(tmp, "rgbd.cfg")
-        with open(rgbd_cfg, "w") as fh:
-            fh.write(_cfg_text(cfg, {"path_str": dump, "base_str": "img_.*",
-                                     "format_str": "png", "right_img": 0,
-                                     "disp_img": 1}))
-        out_c = os.path.join(tmp, "trajectory_rgbd.txt")
-        bm.launches = 0
-        summ_c = _cli([rgbd_cfg, "--threaded", "--pipelined",
-                       "--pipeline-depth", "3", "--out", out_c])
-        launches_c = bm.launches
-        fids_c, ate_c = _traj_ate(out_c, frames)
-        print(f"disk (c): RGB-D dump replayed through stereo_slam.main "
-              f"(external disparity, device prefetch): {len(fids_c)}/{n} "
-              f"tracked, {summ_c['keyframes']} keyframes, ATE {ate_c:.5f} m, "
-              f"{summ_c['frames_per_s']:.2f} frames/s, wait in next_frame "
-              f"{summ_c['grab_wait_ms']:.3f} ms per frame; block-matching "
-              f"launches {launches_c}", flush=True)
-        if summ_c["frames_processed"] != n or fids_c != list(range(n)):
-            _fail(f"disk (c): {len(fids_c)}/{n} frames tracked")
-        if not ate_c < ATE_MAX:
-            _fail(f"disk (c): ATE {ate_c} m")
-        if launches_c != 0:
-            _fail(f"disk (c): {launches_c} block-matching launches with "
-                  "external disparity")
+    # -- (c) RGB-D: record left + exact disparity, replay through the CLI
+    dump = os.path.join(tmp, "rgbd")
+    record(({"frame_id": i, "left": fr["left"], "disp_gt": fr["disp_gt"]}
+            for i, fr in ((i, seq.frame(i)) for i in range(n))), dump)
+    rgbd_cfg = os.path.join(tmp, "rgbd.cfg")
+    with open(rgbd_cfg, "w") as fh:
+        fh.write(_cfg_text(cfg, {"path_str": dump, "base_str": "img_.*",
+                                 "format_str": "png", "right_img": 0,
+                                 "disp_img": 1}))
+    out_c = os.path.join(tmp, "trajectory_rgbd.txt")
+    bm.launches = 0
+    summ_c = _cli([rgbd_cfg, "--threaded", "--pipelined",
+                   "--pipeline-depth", "3", "--out", out_c])
+    launches_c = bm.launches
+    fids_c, ate_c = _traj_ate(out_c, frames)
+    print(f"disk (c): RGB-D dump replayed through stereo_slam.main "
+          f"(external disparity, device prefetch): {len(fids_c)}/{n} "
+          f"tracked, {summ_c['keyframes']} keyframes, ATE {ate_c:.5f} m, "
+          f"{summ_c['frames_per_s']:.2f} frames/s, wait in next_frame "
+          f"{summ_c['grab_wait_ms']:.3f} ms per frame; block-matching "
+          f"launches {launches_c}", flush=True)
+    if summ_c["frames_processed"] != n or fids_c != list(range(n)):
+        _fail(f"disk (c): {len(fids_c)}/{n} frames tracked")
+    if not ate_c < ATE_MAX:
+        _fail(f"disk (c): ATE {ate_c} m")
+    if launches_c != 0:
+        _fail(f"disk (c): {launches_c} block-matching launches with "
+              "external disparity")
 
     # -- (d) rectification
     def rcfg(dist, on):
@@ -870,7 +902,157 @@ def _phase_disk(cam, cfg, dev, seq, frames, fps_lc):
         _fail(f"disk (d): ATE {on['ate']} m")
     if launches_d != RECT_FRAMES:
         _fail(f"disk (d): kernel launches {launches_d} != {RECT_FRAMES}")
-    return launches_a + launches_d
+    return launches_a + launches_d, cfg_path, summ["frames_per_s"]
+
+
+def _bp_bound_ms(h, w, num_disp, iters, levels, nr_plane=None):
+    """Least ms for one BP (nr_plane None) or CSBP call at 3.35 TB/s: each
+    round reads the data term and the four messages and writes the four
+    messages once, at every level; the pair read and the output written
+    once. CSBP runs full-D BP at its coarsest level and nr_plane candidates
+    above it."""
+    sizes = [(h, w)]
+    for _ in range(1, levels):
+        if min(sizes[-1]) < 2:
+            break
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    n = len(sizes)
+    if nr_plane is None:
+        planes = [num_disp] * n
+    else:
+        planes = [max(2, nr_plane)] * (n - 1) + [max(2, num_disp >> (n - 1))]
+    entries = sum(d * hh * ww for d, (hh, ww) in zip(planes, sizes))
+    nbytes = 4 * (9 * iters * entries + 3 * h * w)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def _bp_calls(num_disp):
+    """{name: f(left, right)} of the two methods at phase 12's options."""
+    from scavislam_tpu_torch.ops.stereo_bp import (
+        belief_propagation_disparity, constant_space_bp_disparity)
+    return {
+        "bp": lambda l, r: belief_propagation_disparity(
+            l, r, num_disp, iters=BP_OPTS[0], levels=BP_OPTS[1]),
+        "csbp": lambda l, r: constant_space_bp_disparity(
+            l, r, num_disp, *CSBP_OPTS),
+    }
+
+
+def _phase_stereo_methods(f0, num_disp, ms_bm, nc_cfg, fps_a, frames, tmp):
+    """Phase 12: stereo methods 3 and 4, alone, card against CPU, and
+    through the CLI."""
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.ops.image import binomial3
+    calls = _bp_calls(num_disp)
+    left, right = binomial3(f0["left"]), binomial3(f0["right"])
+    h, w = left.shape
+    gt = f0["disp_gt"]
+    interior = torch.zeros_like(gt, dtype=torch.bool)
+    interior[8:-8, num_disp:-8] = True
+    interior &= (gt > 1) & (gt < num_disp - 1)
+    bounds = {"bp": _bp_bound_ms(h, w, num_disp, *BP_OPTS),
+              "csbp": _bp_bound_ms(h, w, num_disp, CSBP_OPTS[0],
+                                   CSBP_OPTS[1], CSBP_OPTS[2])}
+    limits = {"bp": 1.0, "csbp": 1.5}
+    # -- (a) alone at 512x384
+    for name, fn in calls.items():
+        d = fn(left, right)
+        torch.cuda.synchronize()
+        if tuple(d.shape) != (h, w) or not bool(torch.isfinite(d).all()):
+            _fail(f"stereo methods (a): {name} output {tuple(d.shape)}, "
+                  "not finite or not (H, W)")
+        lo, hi = float(d.min()), float(d.max())
+        if lo < 0 or hi > num_disp:
+            _fail(f"stereo methods (a): {name} range [{lo}, {hi}]")
+        med = float(torch.median(torch.abs(d - gt)[interior]))
+        walls = []
+        for _ in range(TIMING_RUNS):
+            t0 = time.perf_counter()
+            fn(left, right)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        ms_ev = _cuda_ms(lambda: fn(left, right), TIMING_RUNS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(left, right)
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        try:
+            g, out = _graph_of(lambda: fn(left, right))
+        except RuntimeError as e:  # reported; the eager numbers stand
+            graph = f"not captured ({type(e).__name__}: {e})"
+        else:
+            ms_g = _cuda_ms(g.replay, TIMING_RUNS)
+            same = torch.equal(out, d)
+            graph = (f"{ms_g:.3f} ms per replay (output torch.equal to the "
+                     f"eager call's {same}), {100 * bounds[name] / ms_g:.2f}%"
+                     " of the bound")
+            del g
+        print(f"stereo methods (a): {name} {(h, w)} D={num_disp}: range "
+              f"[{lo:.3f}, {hi:.3f}], median |d-gt| {med:.4f} px on "
+              f"{int(interior.sum())} interior pixels; eager "
+              f"{float(np.median(walls)):.3f} ms wall, {ms_ev:.3f} ms "
+              f"between CUDA events (median of {TIMING_RUNS}); CUDA graph "
+              f"{graph}; peak {peak_mb:.1f} MiB allocated by the call; bound "
+              f"{bounds[name]:.4f} ms (bytes); block matching (phase 3) "
+              f"{ms_bm:.4f} ms", flush=True)
+        if not med <= limits[name]:
+            _fail(f"stereo methods (a): {name} median error {med} px")
+
+    # -- (b) card against CPU on a 256x192 crop
+    lc = left[96:288, 128:384].contiguous()
+    rc = right[96:288, 128:384].contiguous()
+    bp_g, cs_g = calls["bp"](lc, rc), calls["csbp"](lc, rc)
+    bp_c, cs_c = calls["bp"](lc.cpu(), rc.cpu()), calls["csbp"](lc.cpu(),
+                                                                rc.cpu())
+    dbp = torch.abs(bp_g.cpu() - bp_c)
+    frac_bp = float((dbp <= 1e-3).float().mean())
+    frac_cs = float((cs_g.cpu() == cs_c).float().mean())
+    print(f"stereo methods (b): {tuple(lc.shape)} crop, card against CPU: "
+          f"BP within 1e-3 px on {100 * frac_bp:.3f}% of pixels (largest "
+          f"{float(dbp.max()):.4g} px), CSBP equal on {100 * frac_cs:.3f}%",
+          flush=True)
+    if frac_bp < 0.99 or frac_cs < 0.99:
+        _fail("stereo methods (b): the card disagrees with the CPU")
+
+    # -- (c) the entry point on phase 11's tree
+    bm = stereo_bm.block_matching_disparity_bm
+    with open(nc_cfg) as fh:
+        base_text = fh.read()
+    for method in (3, 4):
+        path = os.path.join(tmp, f"newcollege_method{method}.cfg")
+        with open(path, "w") as fh:
+            fh.write(base_text + f"ui.stereo_method = {method};\n")
+        out = os.path.join(tmp, f"trajectory_method{method}.txt")
+        args = [path, "--threaded", "--pipelined", "--pipeline-depth", "3",
+                "--out", out]
+        _cli(args + ["--max-frames", "6"])
+        torch.cuda.synchronize()
+        bm.launches = 0
+        summ = _cli(args + ["--max-frames", str(BP_FRAMES)])
+        launches = bm.launches
+        fids, ate = _traj_ate(out, frames)
+        print(f"stereo methods (c): stereo_method {method} through "
+              f"stereo_slam.main (threaded, pipelined depth 3, loop closure "
+              f"on): {summ['frames_processed']} frames processed, "
+              f"{len(fids)} tracked, {summ['keyframes']} keyframes, ATE "
+              f"{ate:.5f} m, {summ['frames_per_s']:.2f} frames/s (block "
+              f"matching, phase 11 (a): {fps_a:.2f}); block-matching "
+              f"launches {launches}", flush=True)
+        if summ["frames_processed"] != BP_FRAMES or fids != list(
+                range(BP_FRAMES)):
+            _fail(f"stereo methods (c): method {method}: {len(fids)}/"
+                  f"{BP_FRAMES} frames tracked")
+        if summ["keyframes"] < 2:
+            _fail(f"stereo methods (c): method {method}: fewer than 2 "
+                  "keyframes")
+        if not ate < BP_ATE_MAX[method]:
+            _fail(f"stereo methods (c): method {method}: ATE {ate} m")
+        if launches != 0:
+            _fail(f"stereo methods (c): method {method}: {launches} "
+                  "block-matching launches")
+    return left, right
 
 
 def _scenes(n):
@@ -1176,14 +1358,28 @@ def main():
     _time_solve(sys_t["system"].backend.graph)
     _phase_loop(cfg, dev)
     _phase_relocalize(cfg, dev)
-    launches += _phase_disk(cam, cfg, dev, seq, frames, sys_l["fps"])
+    with tempfile.TemporaryDirectory() as tmp:
+        n_disk, nc_cfg, fps_a = _phase_disk(cam, cfg, dev, seq, frames,
+                                            sys_l["fps"], tmp)
+        launches += n_disk
+        bl, br = _phase_stereo_methods(f0, num_disp, ms_k, nc_cfg, fps_a,
+                                       frames, tmp)
 
     try:
-        dev_us = _kernel_device_us(
-            lambda: stereo_bm.bm_cuda(lf, rf, num_disp, 5), TIMING_RUNS)
+        dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(
+            lambda: stereo_bm.bm_cuda(lf, rf, num_disp, 5), TIMING_RUNS)}
     except Exception as e:  # the profiler is a report, not a check
         dev_us = f"not measured ({type(e).__name__}: {e})"
     print(f"profile: device us per single-image call {dev_us}", flush=True)
+    for name, fn in _bp_calls(num_disp).items():
+        try:
+            rows = _kernel_profile(lambda: fn(bl, br), 5)
+            prof = (f"{sum(n for _, n, _ in rows):.0f} CUDA kernel launches "
+                    f"per call, {sum(us for _, _, us in rows) / 1e3:.3f} ms "
+                    "of kernel time summed (5 calls)")
+        except Exception as e:  # the profiler is a report, not a check
+            prof = f"not measured ({type(e).__name__}: {e})"
+        print(f"profile: {name} at 512x384 D={num_disp}: {prof}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,

@@ -8,9 +8,12 @@ Conventions (Sophus-compatible, as in the JAX twin):
 
 Everything is shape-polymorphic over leading batch dims. Near ``theta -> 0``
 the f32 Taylor branches cover a WIDE neighbourhood (theta^2 < 0.04): in f32,
-1 - cos(theta) cancels catastrophically up to theta ~ 0.1.
+1 - cos(theta) cancels catastrophically up to theta ~ 0.1. Both branches of
+every ``torch.where`` are finite at zero (the exact branch is computed from a
+clamped angle), so forward- and reverse-mode derivatives stay finite there.
 
-Sim3 is not ported yet (mono slice).
+``Sim3`` is the similarity group of the monocular mode, tangent
+``[upsilon(3), omega(3), sigma(1)]`` with scale ``s = exp(sigma)``.
 """
 
 from __future__ import annotations
@@ -78,10 +81,18 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def _identity_R(batch_shape, dtype, device) -> torch.Tensor:
+    return torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+
+
 class SO3(NamedTuple):
     """Rotation group element; `R` is (..., 3, 3)."""
 
     R: torch.Tensor
+
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "SO3":
+        return SO3(_identity_R(batch_shape, dtype, device))
 
     @staticmethod
     def exp(omega: torch.Tensor) -> "SO3":
@@ -150,6 +161,15 @@ class SE3(NamedTuple):
     t: torch.Tensor
 
     @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "SE3":
+        return SE3(_identity_R(batch_shape, dtype, device),
+                   torch.zeros((*batch_shape, 3), dtype=dtype, device=device))
+
+    @staticmethod
+    def from_matrix(T: torch.Tensor) -> "SE3":
+        return SE3(T[..., :3, :3], T[..., :3, 3])
+
+    @staticmethod
     def exp(xi: torch.Tensor) -> "SE3":
         """Tangent [upsilon, omega] -> group element."""
         ups, omega = xi[..., :3], xi[..., 3:]
@@ -191,6 +211,32 @@ class SE3(NamedTuple):
         Rt = self.R.transpose(-1, -2)
         return SE3(Rt, -_mv(Rt, self.t))
 
+    def matrix(self) -> torch.Tensor:
+        """(..., 4, 4) homogeneous matrix."""
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.R.dtype,
+                              device=self.R.device)
+        bottom = bottom.expand(*self.t.shape[:-1], 1, 4)
+        top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
+        return torch.cat([top, bottom], dim=-2)
+
+    def adjoint(self) -> torch.Tensor:
+        """(..., 6, 6) adjoint: Ad(T) @ xi = (T * exp(xi) * T^-1).log()."""
+        top = torch.cat([self.R, hat(self.t) @ self.R], dim=-1)
+        bot = torch.cat([torch.zeros_like(self.R), self.R], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+
+    def retract(self, delta: torch.Tensor) -> "SE3":
+        """Left-multiplicative update exp(delta) * self."""
+        return SE3.exp(delta) @ self
+
+    @staticmethod
+    def stack(transforms) -> "SE3":
+        return SE3(torch.stack([T.R for T in transforms]),
+                   torch.stack([T.t for T in transforms]))
+
+    def slice(self, idx) -> "SE3":
+        return SE3(self.R[idx], self.t[idx])
+
 
 def lie_bracket_se3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """se(3) Lie bracket [a, b] for 6-vectors [ups, omega]."""
@@ -208,6 +254,87 @@ def ad_se3(xi: torch.Tensor) -> torch.Tensor:
     top = torch.cat([Ow, Ou], dim=-1)
     bot = torch.cat([torch.zeros_like(Ow), Ow], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+class Sim3(NamedTuple):
+    """Similarity transform (s * R, t), the monocular mode's pose type.
+    Tangent layout [upsilon(3), omega(3), sigma(1)] with s = exp(sigma)."""
+
+    R: torch.Tensor  # (..., 3, 3)
+    t: torch.Tensor  # (..., 3)
+    s: torch.Tensor  # (...,) scale
+
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "Sim3":
+        return Sim3(_identity_R(batch_shape, dtype, device),
+                    torch.zeros((*batch_shape, 3), dtype=dtype, device=device),
+                    torch.ones(batch_shape, dtype=dtype, device=device))
+
+    @staticmethod
+    def exp(xi: torch.Tensor) -> "Sim3":
+        """7-vector [ups, omega, sigma] -> group element, t = W ups with
+        W = A I + B Om + C Om^2 (Strasdat's closed form); each series branch
+        is selected by a where over a denominator kept away from zero."""
+        ups, omega, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+        R = SO3.exp(omega).R
+        s = torch.exp(sigma)
+        theta2 = torch.sum(omega * omega, dim=-1)
+        theta = torch.sqrt(torch.clamp(theta2, min=1e-12))
+        Om = hat(omega)
+        Om2 = Om @ Om
+        one = torch.ones_like(sigma)
+
+        sig_small = torch.abs(sigma) < 1e-4
+        th_small = theta2 < 1e-6
+        sig_safe = torch.where(sig_small, one, sigma)
+        th_safe = torch.where(th_small, one, theta)
+
+        A_ss = 1.0 + sigma / 2.0 + sigma * sigma / 6.0  # (e^s - 1)/s series
+        A = torch.where(sig_small, A_ss, (s - 1.0) / sig_safe)
+
+        a = s * torch.sin(th_safe)
+        b = s * torch.cos(th_safe)
+        c = theta2 + sigma * sigma
+        c_safe = torch.where(c < 1e-12, one, c)
+        B_gen = (a * sigma + (1.0 - b) * theta) / (th_safe * c_safe)
+        C_gen = (A - ((b - 1.0) * sigma + a * theta) / c_safe) / torch.clamp(
+            theta2, min=1e-12)
+        B = torch.where(th_small, 0.5 - sigma / 6.0, B_gen)  # theta -> 0
+        C = torch.where(th_small, 1.0 / 6.0 - sigma / 24.0, C_gen)
+
+        W = (A[..., None, None] * _eye3(xi) + B[..., None, None] * Om
+             + C[..., None, None] * Om2)
+        return Sim3(R, _mv(W, ups), s)
+
+    def log(self) -> torch.Tensor:
+        """Group element -> 7-vector; W is rebuilt column by column from
+        exp at unit translations and inverted by a 3x3 solve."""
+        omega = SO3(self.R).log()
+        sigma = torch.log(self.s)
+        eye = _eye3(self.t)
+        cols = []
+        for i in range(3):
+            probe = torch.cat([eye[i].expand(omega.shape), omega,
+                               sigma[..., None]], dim=-1)
+            cols.append(Sim3.exp(probe).t)
+        W = torch.stack(cols, dim=-1)
+        ups = torch.linalg.solve(W, self.t[..., :, None])[..., 0]
+        return torch.cat([ups, omega, sigma[..., None]], dim=-1)
+
+    def __matmul__(self, other):
+        if isinstance(other, Sim3):
+            return Sim3(self.R @ other.R,
+                        self.s[..., None] * _mv(self.R, other.t) + self.t,
+                        self.s * other.s)
+        return self.apply(other)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.s[..., None] * _mv(self.R, x) + self.t
+
+    def inverse(self) -> "Sim3":
+        Rt = self.R.transpose(-1, -2)
+        s_inv = 1.0 / self.s
+        return Sim3(Rt, -s_inv[..., None] * _mv(Rt, self.t), s_inv)
 
 
 def se3_exp_host(xi: np.ndarray):

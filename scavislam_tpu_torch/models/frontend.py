@@ -323,6 +323,8 @@ class StereoFrontend:
             self.levels, self._num_disp, bool(use_ext),
             float(self.cfg.ui.max_reproj_error),
             int(self.cfg.ui.stereo_method),
+            (int(self.cfg.ui.stereo_iters), int(self.cfg.ui.stereo_levels),
+             int(self.cfg.ui.stereo_nr_plane)),
             dense_subs=self.dense_subs,
             dense_sample=self.dense_sample,
         )

@@ -13,11 +13,13 @@ One call per frame runs, in order:
 and returns one packed f32 vector for the host policy, in the twin's layout
 (``FrontendStepOut.packed``), plus device-resident state.
 
-Stereo: method 2 (the default) runs the hand-written block-matching kernel
-through ``ops.stereo_bm`` (its plain version on the CPU); method 1 runs the
-cost-volume twin ``ops.stereo.block_matching_disparity``; an external
-disparity plane can replace both. Methods 3 and 4 (BP / CSBP) are not
-ported yet and raise.
+Stereo, runtime-selectable as the reference's four methods: method 2 (the
+default) runs the hand-written block-matching kernel through
+``ops.stereo_bm`` (its plain version on the CPU); method 1 runs the
+cost-volume twin ``ops.stereo.block_matching_disparity``; method 3
+hierarchical belief propagation and method 4 constant-space BP
+(``ops.stereo_bp``, with ``stereo_opts = (iters, levels, nr_plane)``); an
+external disparity plane replaces them all.
 
 Index hygiene: JAX clamps out-of-range gather indices silently and the
 twin relies on it (padded candidate ids, bucket neighbourhoods, patch
@@ -59,6 +61,10 @@ from scavislam_tpu_torch.ops.image import (
 from scavislam_tpu_torch.ops.patches import PATCH, affine_from_geometry
 from scavislam_tpu_torch.ops.stereo import block_matching_disparity
 from scavislam_tpu_torch.ops.stereo_bm import block_matching_disparity_bm
+from scavislam_tpu_torch.ops.stereo_bp import (
+    belief_propagation_disparity,
+    constant_space_bp_disparity,
+)
 
 # guided-match window radius in level pixels: the most the 3x3 bucket
 # neighbourhood of 16 px cells can guarantee to cover
@@ -266,12 +272,18 @@ def _match_one_level(cam_l, img_level, R_cw, t_cw, xyz_w, R_aw, t_aw,
 
 
 def _disparity(img_s, right_s, external_disp, use_external_disp, stereo_method,
-               num_disp):
+               num_disp, stereo_opts):
     if use_external_disp:
         return external_disp
-    if stereo_method in (3, 4):
-        raise NotImplementedError(
-            f"stereo method {stereo_method} (BP/CSBP) is not ported yet")
+    iters, levels, nr_plane = stereo_opts
+    if stereo_method == 3:
+        return belief_propagation_disparity(
+            img_s, right_s, num_disp=num_disp, iters=max(5, iters),
+            levels=max(4, levels))
+    if stereo_method == 4:
+        return constant_space_bp_disparity(
+            img_s, right_s, num_disp=num_disp, iters=iters, levels=levels,
+            nr_plane=nr_plane)
     if stereo_method == 1:
         return block_matching_disparity(img_s, right_s, num_disp=num_disp,
                                         radius=5)
@@ -293,7 +305,8 @@ def frontend_step(
     num_disp: int = 64,
     use_external_disp: bool = False,
     max_reproj_err: float = 2.0,
-    stereo_method: int = 2,
+    stereo_method: int = 2,  # 1/2 block matching, 3 BP, 4 CSBP
+    stereo_opts: tuple = (4, 4, 4),  # (iters, levels, nr_plane) of BP/CSBP
     *,
     dense_subs: tuple = DENSE_SUBS,  # dense-cloud per-level subsampling
     dense_sample: str = "qpack",  # one of DENSE_SAMPLERS (both exact)
@@ -321,7 +334,7 @@ def frontend_step(
 
     # -- 2. disparity
     disp = _disparity(img_s, right_s, external_disp, use_external_disp,
-                      stereo_method, num_disp)
+                      stereo_method, num_disp, stereo_opts)
 
     K_cap = poses.R.shape[0]
     R_akw = poses.R[actkey_id]

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions, and the port's paths on the card (the backend's solve,
 the place recognizer's describe and geometric check, threaded SlamSystem
-runs) against the CPU. Every test here needs a CUDA card and skips without
-one.
+runs, BP and CSBP stereo) against the CPU. Every test here needs a CUDA
+card and skips without one.
 
 This file imports no JAX (the machine with the card has none), so on a card:
 
@@ -485,3 +485,35 @@ def test_grabber_upload_does_not_synchronize(cuda_device, tmp_path):
         f["upload_event"].synchronize()
         assert torch.equal(f["stacked_dev"],
                            torch.as_tensor(want, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bp", "csbp"])
+def test_bp_on_card_matches_cpu(cuda_device, method):
+    # belief propagation (stereo method 3) and constant-space BP (4) at
+    # 192x256, D = 64, on the binomial-smoothed pair: each call enqueues with
+    # no synchronizing call, and the card agrees with the CPU as chip_smoke
+    # phase 12 (b) requires: BP within 1e-3 px on >= 99% of pixels, CSBP
+    # equal on >= 99%
+    from scavislam_tpu_torch.ops.stereo_bp import (
+        belief_propagation_disparity, constant_space_bp_disparity)
+    f = SyntheticSequence(CAM, n_frames=1, device=cuda_device).frame(0)
+    left, right = binomial3(f["left"]), binomial3(f["right"])
+    if method == "bp":
+        def fn(l, r):
+            return belief_propagation_disparity(l, r, 64, iters=5, levels=4)
+    else:
+        def fn(l, r):
+            return constant_space_bp_disparity(l, r, 64, 4, 4, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = fn(left, right)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert card.device == left.device
+    cpu = fn(left.cpu(), right.cpu())
+    if method == "bp":
+        assert float((torch.abs(card.cpu() - cpu) <= 1e-3).float().mean()) >= 0.99
+    else:
+        assert float((card.cpu() == cpu).float().mean()) >= 0.99

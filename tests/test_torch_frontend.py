@@ -233,9 +233,13 @@ def test_tracking_failure_reported(frames):
     assert not success and not dropped
 
 
-def test_unported_options_raise():
-    # rectification is ported: tests/test_torch_rectify.py
+def test_unported_options_raise(frames):
+    # every stereo method is ported now (rectification too:
+    # tests/test_torch_rectify.py): the belief-propagation frontend's first
+    # frame runs and spawns points from its dense disparity, with no
+    # block-matching call (tests/test_torch_stereo_bp.py holds the method)
     fe = TFrontend(T_CAM, _cfg(TConfig, 3), device=CPU)
-    img = np.zeros((192, 256), np.float32)
-    with pytest.raises(NotImplementedError, match="BP/CSBP"):
-        fe.process_first_frame({"frame_id": 0, "left": img, "right": img})
+    before = stereo_bm.block_matching_disparity_bm.launches
+    fe.process_first_frame(_host(frames[0]))
+    assert fe.next_kf == 1 and fe.next_point > 100
+    assert stereo_bm.block_matching_disparity_bm.launches == before

@@ -324,6 +324,11 @@ def test_package_imports_without_jax():
         "import scavislam_tpu_torch, scavislam_tpu_torch.interop\n"
         "from scavislam_tpu_torch.models import frontend, frontend_step\n"
         "from scavislam_tpu_torch.ops import stereo_bm, stereo, fast, image\n"
+        "from scavislam_tpu_torch.ops import stereo_bp, patches\n"
+        "from scavislam_tpu_torch.core import transforms\n"
+        "from scavislam_tpu_torch.core.lie import Sim3\n"
+        "from scavislam_tpu_torch.core.camera import LinearCamera\n"
+        "from scavislam_tpu_torch.models.dense_tracker import dense_tracking\n"
         "from scavislam_tpu_torch.io import synthetic\n"
         "from scavislam_tpu_torch.utils import config, perfmon\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -143,6 +143,21 @@ def test_cli_synthetic(tree, tmp_path):
     assert summary["ate_rmse_m"] < 0.05
 
 
+def test_cli_stereo_method_4(tree, tmp_path):
+    # a .cfg that selects constant-space BP runs through the CLI: every
+    # frame tracked within the CLI tests' bar
+    _root, cfg, gt = tree
+    cfg4 = tmp_path / "csbp.cfg"
+    with open(cfg) as fh:
+        cfg4.write_text(fh.read() + "ui.stereo_method = 4;\n")
+    assert stereo_slam.load_config(str(cfg4)).ui.stereo_method == 4
+    summary, traj = _cli(tmp_path, str(cfg4), "--max-frames", "6",
+                         "--no-loop-closure")
+    assert summary["frames_processed"] == 6
+    assert sorted(fid for fid, _ in traj) == list(range(6))
+    assert _ate(traj, gt) < 0.05
+
+
 def test_cli_max_frames(tree, tmp_path):
     _root, cfg, _gt = tree
     summary, traj = _cli(tmp_path, cfg, "--max-frames", "4",
