@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card: the synchronous
 and pipelined single-stream frontend, the 8-stream pool, the whole
 SlamSystem (frontend + backend + place recognition) as the headline
-benchmark configures it, the loop-closure workload and relocalization.
+benchmark configures it, the loop-closure workload and relocalization, the
+disk entry point, the stereo methods and the monocular mode.
 
 Run from the root of a checkout, with no arguments:
 
@@ -129,10 +130,35 @@ non-zero before the result line):
    tracker; it scores ~0.17 m here), no block-matching launch; frames/s
    beside phase 11 (a)'s.
 
+13. mono — the monocular mode, with no block-matching launch. (a)
+   benchmarks/run_configs.py config 6 through the port: Config(), 512x384,
+   the forward arc at step 0.01, 120 frames, each left plane on the card
+   as uint8, MonoFrontend pipelined at depth 3 after a warm-up run that
+   also spawns: every frame in the trajectory, >= 2 keyframes, the
+   Sim3-aligned ATE under 0.06 x the path length
+   (tests/test_mono.py:88-97); frames/s; the eager mono_step on the run's
+   last state (wall ms and ms between CUDA events, enqueued with no
+   synchronizing call under sync debug mode "error") and the step
+   captured as a CUDA graph (replay ms, replay torch.equal to the eager
+   step); the synchronous first 20 frames against the pipelined run within
+   test_pipelined_matches_sync's bar. (b) The frames as a New College tree
+   through apps/mono_vo.main with --loop-close --window-ba --dwo
+   --pipelined --save-system on frames 0-79 (all tracked, > 50 converged
+   points, the ATE bar), then --load-system on frames 80-119: the resumed
+   pose equal to an in-process resume from the same files within 1e-5
+   (test_checkpoint_resume's tolerance), the ATE bar over both runs. (c)
+   At the twin's 128x96 camera: the mono loop-closure scene
+   (tests/test_mono.py:133-240: a loop detected, a 1.3x drift found by
+   the Sim3, close_loop_sim3 re-gauging it) and the kidnap (:412-452,
+   relocalized within 0.15 m); the Sim3 pose graph on the 12-node drift
+   loop of tests/test_sim3_mono.py card against CPU within 1e-4, wall ms
+   per solve. (d) build_multistream_mono at B = 4, 512x384, against four
+   mono_step calls: packed vectors within 1e-5, gates equal.
+
 After the phases, torch.profiler (last, so that its tracing cannot slow the
 timed phases): the device time of each kernel of one single-image
-block-matching call, and the launches and summed kernel time per BP and
-per CSBP call. The last three lines are the per-kernel JSON record, the
+block-matching call, and the launches and summed kernel time per BP, per
+CSBP and per mono_step call. The last three lines are the per-kernel JSON record, the
 card's name and power limit, and the result line.
 """
 
@@ -1055,6 +1081,452 @@ def _phase_stereo_methods(f0, num_disp, ms_bm, nc_cfg, fps_a, frames, tmp):
     return left, right
 
 
+MONO_FRAMES = 120  # benchmarks/run_configs.py config 6
+MONO_STEP = 0.01
+MONO_ATE_FRAC = 0.06  # of the path length (tests/test_mono.py:88-97)
+MONO_SYNC_FRAMES = 20
+MONO_SPLIT = 80  # (b): frames before the checkpoint
+MONO_STREAMS = 4
+RESUME_TOL = 1e-5  # tests/test_mono.py test_checkpoint_resume
+# the eager step is ~0.3 s of host time: 10 runs hold the script's time
+MONO_TIMING_RUNS = 10
+# the twin's mono test camera: the Sim3 scenes exist only at this size
+MONO_SMALL_CAM = (130.0, (63.5, 47.5), (128, 96), 0.12)
+
+
+def _centers(poses):
+    """Camera centers (N, 3) of host poses (anything PoseRT takes)."""
+    from scavislam_tpu_torch.core.lie import PoseRT
+    out = []
+    for T in poses:
+        T = PoseRT.from_any(T)
+        out.append(-np.asarray(T.R).T @ np.asarray(T.t))
+    return np.stack(out)
+
+
+def _sim3_ate(est_centers, gt_centers):
+    """ATE after a closed-form Sim3 (Umeyama) alignment of the centers
+    (pipeline.slam_system.ate_rmse_aligned on centers)."""
+    from scavislam_tpu_torch.core.lie import umeyama_sim3
+    s, R, t = umeyama_sim3(est_centers, gt_centers)
+    r = gt_centers - (s * est_centers @ R.T + t)
+    return float(np.sqrt((r ** 2).sum(axis=1).mean()))
+
+
+def _tum_centers(path):
+    """(frame ids, camera centers) of a TUM file (rows: id, t_wc, q)."""
+    rows = np.atleast_2d(np.loadtxt(path))
+    return rows[:, 0].astype(int), rows[:, 1:4]
+
+
+def _mono_cli(args):
+    """apps/mono_vo.main with its JSON summary captured; returns it."""
+    from scavislam_tpu_torch.apps import mono_vo
+    with contextlib.redirect_stdout(io.StringIO()):
+        return mono_vo.main(args)
+
+
+def _mono_run(fe, frames, pipelined):
+    """Frames 1.. through `fe` (after process_first_frame(frames[0])).
+    Returns (the failed frame id or None, seconds from the first dispatch
+    to the flush)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    failed = None
+    for f in frames[1:]:
+        if pipelined:
+            r = fe.process_frame_pipelined(f)
+            if r is not None and not r[0]:
+                failed = r[2]
+                break
+        else:
+            ok, _ = fe.process_frame(f)
+            if not ok:
+                failed = f["frame_id"]
+                break
+    if pipelined and failed is None:
+        for ok, _, fid in fe.flush_pipeline():
+            if not ok:
+                failed = fid
+                break
+    torch.cuda.synchronize()
+    return failed, time.perf_counter() - t0
+
+
+def _phase_mono(cam, cfg, dev, tmp):
+    """Phase 13: the monocular mode. Returns the block-matching launches it
+    made (0 expected) and a call of (a)'s mono_step for the profile."""
+    from types import SimpleNamespace
+
+    from scavislam_tpu_torch.core.camera import StereoCamera
+    from scavislam_tpu_torch.io.filegrabber import FileGrabber
+    from scavislam_tpu_torch.io.synthetic import SyntheticSequence
+    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    from scavislam_tpu_torch.models.mono_step import mono_step
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.utils.serialization import load_mono_system
+    bm = stereo_bm.block_matching_disparity_bm
+    bmb = stereo_bm.block_matching_disparity_bm_batched
+    t_phase = time.perf_counter()
+
+    # -- (a) config 6 in memory: 120 frames, uint8 left planes on the card
+    seq = SyntheticSequence(cam, n_frames=MONO_FRAMES, step=MONO_STEP,
+                            device=dev)
+    frames = []
+    for i in range(MONO_FRAMES):
+        f = seq.frame(i)
+        frames.append({"frame_id": i, "left": f["left"],
+                       "right": f["right"], "left_dev": _u8(f["left"]),
+                       "T_cw_gt": f["T_cw_gt"]})
+    gt_c = _centers([f["T_cw_gt"] for f in frames])
+    path_len = float(np.linalg.norm(np.diff(gt_c, axis=0), axis=1).sum())
+    ate_max = MONO_ATE_FRAC * path_len
+    warm = MonoFrontend(cam, cfg, device=dev)  # every program, once
+    warm.process_first_frame(frames[0])
+    for f in frames[1:6]:
+        warm.process_frame_pipelined(f)
+    warm.flush_pipeline()
+    warm._add_new_keyframe(SimpleNamespace(pyr=warm.last_pyr))
+    torch.cuda.synchronize()
+
+    bm.launches = bmb.launches = 0
+    fe = MonoFrontend(cam, cfg, device=dev)
+    fe.pipeline_depth = 3
+    fe.process_first_frame(frames[0])
+    failed, dt = _mono_run(fe, frames, pipelined=True)
+    launches = bm.launches + bmb.launches
+    fps = (MONO_FRAMES - 1) / dt
+    fids = [fid for fid, _ in fe.trajectory]
+    ate = _sim3_ate(_centers([T for _, T in fe.trajectory]), gt_c[fids])
+    # the eager step alone, on the run's final state and last frame
+    cand = fe._cand_device(fe._collect_candidates())
+    R, t = fe._pose_dev()
+    args = (frames[-1]["left_dev"], R, t, fe._actkey_dev(), fe.poses,
+            fe.points, fe.Lam, cand, fe._conv_dev, fe._pw_dev,
+            fe._cam_params, fe._cam_statics, fe.levels,
+            float(cfg.ui.max_reproj_error), 0.18)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = mono_step(*args)
+        synced = "none"
+    except RuntimeError as e:
+        synced = f"{type(e).__name__}: {e}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if synced != "none":
+        eager = mono_step(*args)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(MONO_TIMING_RUNS):
+        t0 = time.perf_counter()
+        mono_step(*args)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    ms_ev = _cuda_ms(lambda: mono_step(*args), MONO_TIMING_RUNS)
+    graph, captured = _graph_of(lambda: mono_step(*args))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = (torch.equal(captured.packed, eager.packed)
+            and torch.equal(captured.Lam, eager.Lam)
+            and torch.equal(captured.points.psi, eager.points.psi))
+    ms_g = _cuda_ms(graph.replay, TIMING_RUNS)
+    del graph
+    # the synchronous path on the first frames, against the pipelined run
+    fe_s = MonoFrontend(cam, cfg, device=dev)
+    fe_s.process_first_frame(frames[0])
+    failed_s, _ = _mono_run(fe_s, frames[:MONO_SYNC_FRAMES], pipelined=False)
+    fid_s = [fid for fid, _ in fe_s.trajectory]
+    ate_s = _sim3_ate(_centers([T for _, T in fe_s.trajectory]), gt_c[fid_s])
+    head = [(fid, T) for fid, T in fe.trajectory if fid < MONO_SYNC_FRAMES]
+    ate_p = _sim3_ate(_centers([T for _, T in head]),
+                      gt_c[[fid for fid, _ in head]])
+    print(f"mono (a): config 6, {MONO_FRAMES} frames at {cam.size[0]}x"
+          f"{cam.size[1]} (step {MONO_STEP}, uint8 left planes on the card), "
+          f"MonoFrontend pipelined at depth 3: {len(fids)}/{MONO_FRAMES} "
+          f"frames in the trajectory, {fe.next_kf} keyframes, Sim3 ATE "
+          f"{ate:.5f} m (bar {ate_max:.4f} m = {MONO_ATE_FRAC} x path "
+          f"{path_len:.3f} m), {fps:.2f} frames/s over frames 1.."
+          f"{MONO_FRAMES - 1}; block-matching launches {launches} "
+          f"({launches / MONO_FRAMES:.0f} per frame); eager mono_step "
+          f"{float(np.median(walls)):.3f} ms wall, {ms_ev:.3f} ms between "
+          f"CUDA events (medians of {MONO_TIMING_RUNS}); synchronizing "
+          f"calls in the step: {synced}; as a CUDA graph {ms_g:.3f} ms per "
+          f"replay, replay torch.equal to the "
+          f"eager step {same}; synchronous first {MONO_SYNC_FRAMES} frames: "
+          f"{len(fid_s)} in the trajectory, ATE {ate_s:.5f} m against the "
+          f"pipelined run's {ate_p:.5f} m on the same frames", flush=True)
+    if failed is not None or fids != list(range(MONO_FRAMES)):
+        _fail(f"mono (a): tracking failed at frame {failed} "
+              f"({len(fids)} frames in the trajectory)")
+    if fe.next_kf < 2:
+        _fail("mono (a): fewer than 2 keyframes")
+    if not ate < ate_max:
+        _fail(f"mono (a): Sim3 ATE {ate} m over the bar {ate_max} m")
+    if synced != "none":
+        _fail(f"mono (a): the step synchronized ({synced})")
+    if not same:
+        _fail("mono (a): the graph replay differs from the eager step")
+    if failed_s is not None or len(head) != len(fid_s):
+        _fail(f"mono (a): synchronous run failed at {failed_s} or "
+              f"{len(fid_s)} != {len(head)} frames")
+    if not ate_p < max(2.0 * ate_s, 0.02):
+        _fail(f"mono (a): pipelined ATE {ate_p} m against synchronous "
+              f"{ate_s} m on the first {MONO_SYNC_FRAMES} frames")
+
+    # -- (b) the user's entry point: mono_vo on a New College tree
+    root = os.path.join(tmp, "mono_newcollege")
+    os.makedirs(root)
+    nc_cfg = _write_newcollege(root, frames, cfg)
+    ck = os.path.join(tmp, "mono_checkpoint.npz")
+    t1p = os.path.join(tmp, "mono_traj_1.txt")
+    flags = ["--loop-close", "--window-ba", "--dwo", "--pipelined",
+             "--pipeline-depth", "3"]
+    t0 = time.perf_counter()
+    s1 = _mono_cli([nc_cfg, *flags, "--max-frames", str(MONO_SPLIT),
+                    "--save-system", ck, "--out", t1p])
+    wall1 = time.perf_counter() - t0
+    fid1, c1 = _tum_centers(t1p)
+    ate1 = _sim3_ate(c1, gt_c[fid1])
+    # resume on the rest of the tree, synchronously (deterministic), and
+    # the same resume in process from the same files
+    with open(nc_cfg) as fh:
+        rest_cfg = os.path.join(tmp, "mono_rest.cfg")
+        with open(rest_cfg, "w") as out:
+            out.write(fh.read() + f"framepipe.skip_imgs = {MONO_SPLIT};\n")
+    t2p = os.path.join(tmp, "mono_traj_2.txt")
+    s2 = _mono_cli([rest_cfg, "--load-system", ck, "--out", t2p])
+    _, c2 = _tum_centers(t2p)
+    n_saved = len(fid1)
+    resumed = c2[n_saved:]
+    ref = load_mono_system(ck, cam, cfg, device=dev)
+    grab = FileGrabber(root, base_pattern=".*rectified.*", fmt="pnm",
+                       right_img=False, skip=MONO_SPLIT)
+    try:
+        for f in grab:
+            ok, _ = ref.process_frame(f)
+            if not ok:
+                _fail(f"mono (b): the in-process resume failed at "
+                      f"{f['frame_id']}")
+    finally:
+        grab.close()
+    ref_last = _centers([ref.trajectory[-1][1]])[0]
+    resume_err = float(np.abs(resumed[-1] - ref_last).max())
+    gap = float(np.linalg.norm(resumed[0] - c1[-1]))
+    all_c = np.concatenate([c1, resumed])
+    all_f = np.concatenate([fid1, MONO_SPLIT + np.arange(len(resumed))])
+    ate12 = _sim3_ate(all_c, gt_c[all_f])
+    print(f"mono (b): mono_vo.main {' '.join(flags)} on the {MONO_FRAMES}-"
+          f"frame New College tree, frames 0..{MONO_SPLIT - 1} then "
+          f"--save-system: {s1['frames']} frames, {s1['keyframes']} "
+          f"keyframes, {s1['converged_points']} converged points, loop "
+          f"{s1.get('loop')}, {s1['frames'] / wall1:.2f} frames/s with the "
+          f"grabber's device prefetch (summary: {s1['fps']}), Sim3 ATE "
+          f"{ate1:.5f} m; --load-system on frames {MONO_SPLIT}.."
+          f"{MONO_FRAMES - 1}: {s2['frames']} frames, {len(resumed)} new "
+          f"poses, first resumed center {gap:.4f} m from the saved last "
+          f"one, last resumed pose {resume_err:.2e} m from the in-process "
+          f"resume (tolerance {RESUME_TOL}), Sim3 ATE over both runs "
+          f"{ate12:.5f} m (bar {ate_max:.4f} m)", flush=True)
+    if s1["frames"] != MONO_SPLIT or len(fid1) != MONO_SPLIT:
+        _fail(f"mono (b): {s1['frames']} frames, {len(fid1)} poses")
+    if s1["converged_points"] <= 50:
+        _fail(f"mono (b): {s1['converged_points']} converged points")
+    if not (ate1 < ate_max and ate12 < ate_max):
+        _fail(f"mono (b): Sim3 ATE {ate1} / {ate12} m over {ate_max} m")
+    if s2["frames"] != MONO_FRAMES - MONO_SPLIT or len(resumed) != s2[
+            "frames"]:
+        _fail(f"mono (b): the resume ran {s2['frames']} frames")
+    if not resume_err <= RESUME_TOL:
+        _fail(f"mono (b): resumed pose {resume_err} m from the in-process "
+              "resume")
+
+    # -- (c) the Sim3 path at the twin's 128x96 (its scenes exist only
+    # there): the loop-closure scene, the kidnap, the drift pose graph
+    from scavislam_tpu_torch.core.lie import SE3
+    from scavislam_tpu_torch.models import mono_loop
+    from scavislam_tpu_torch.models.map_store import MAX_POINTS
+    small = StereoCamera.create(*MONO_SMALL_CAM)
+    sseq = SyntheticSequence(small, n_frames=14, kind="forward_arc",
+                             step=0.035, device=dev)
+    sfr = [sseq.frame(i) for i in range(14)]
+    sfe = MonoFrontend(small, device=dev)
+    sfe.process_first_frame(sfr[0])
+    for f in sfr[1:8]:
+        if not sfe.process_frame(f)[0]:
+            _fail("mono (c): the loop scene lost tracking")
+    kf1 = sfe._new_keyframe_id()  # a second keyframe over the same corners
+    sfe.poses = sfe.poses.set(kf1, SE3(torch.as_tensor(sfe._R_cw),
+                                       torch.as_tensor(sfe._t_cw)))
+    sfe.pose_np[kf1] = (sfe._R_cw.copy(), sfe._t_cw.copy())
+    sfe.covis[kf1] = {0: 100}
+    sfe.covis[0][kf1] = 100
+    sfe._spawn(sfe.last_pyr, kf1, None)
+    sfe.actkey_id = kf1
+    for f in sfr[8:]:
+        if not sfe.process_frame(f)[0]:
+            _fail("mono (c): the loop scene lost tracking")
+    pr = mono_loop.make_mono_place_recognizer(sfe, score_thr=0.05,
+                                              min_inliers=10)
+    pr.add_location({"kf_id": 0, "img": sfr[0]["left"], "disp": None,
+                     "exclude": {0}})
+    t0 = time.perf_counter()
+    det = pr.add_location({"kf_id": kf1, "img": sfr[7]["left"],
+                           "disp": None, "exclude": {kf1}})
+    det_ms = 1e3 * (time.perf_counter() - t0)
+    drift = 1.3
+    s_pp = np.ones(MAX_POINTS, np.float32)
+    s_pp[sfe._meta_anchor == kf1] = 1.0 / drift
+    sfe.points = sfe.points._replace(psi=mono_loop._regauge_psi(
+        sfe.points.psi, torch.as_tensor(s_pp, device=dev)))
+    R1, t1 = sfe.pose_np[kf1]
+    t1d = (t1 * drift).astype(np.float32)
+    sfe.pose_np[kf1] = (R1, t1d)
+    sfe.poses = sfe.poses.set(kf1, SE3(torch.as_tensor(R1),
+                                       torch.as_tensor(t1d)))
+    sfe._t_cw = (sfe._t_cw * drift).astype(np.float32)
+    S_d, n_d = mono_loop.estimate_sim3(sfe, kf1, 0, min_inliers=10)
+    t0 = time.perf_counter()
+    scales = (mono_loop.close_loop_sim3(sfe, kf1, 0, S_d)
+              if S_d is not None else {})
+    close_ms = 1e3 * (time.perf_counter() - t0)
+    # the kidnap: back at frame 1 with a corrupted yaw belief
+    kfe = MonoFrontend(small, device=dev)
+    kfe.process_first_frame(sfr[0])
+    for f in sfr[1:12]:
+        if not kfe.process_frame(f)[0]:
+            _fail("mono (c): the kidnap scene lost tracking")
+    kpr = mono_loop.make_mono_place_recognizer(kfe, score_thr=0.05)
+    kpr.add_location({"kf_id": 0, "img": sfr[0]["left"], "disp": None,
+                      "exclude": {0}})
+    yaw = SE3.exp(torch.tensor([0, 0, 0, 0.0, 0.7, 0.0]))
+    kfe._R_cw = yaw.R.numpy() @ kfe._R_cw
+    kfe._dev_R_cw = kfe._dev_t_cw = None
+    lost = not kfe.process_frame(sfr[1])[0]
+    reloc = kfe.relocalize(kpr, sfr[1])
+    reloc_err = float(np.linalg.norm(kfe._t_cw - sfr[1]["T_cw_gt"].t.numpy()))
+    after = kfe.process_frame(sfr[2])[0]
+    g_err, g_ms, g_chi2 = _sim3_graph_check(dev)
+    print(f"mono (c): 128x96 loop scene: detected "
+          f"{None if det is None else (det.loop_id, det.inliers)} "
+          f"(add_location {det_ms:.1f} ms wall), scale "
+          f"{None if det is None else round(float(det.S_query_from_loop.s), 4)}"
+          f"; after a 1.3x drift on keyframe {kf1}: Sim3 scale "
+          f"{None if S_d is None else round(float(S_d.s), 4)} ({n_d} "
+          f"inliers), close_loop_sim3 re-gauge {scales.get(kf1)} "
+          f"({close_ms:.1f} ms wall); kidnap: lost {lost}, relocalized "
+          f"{reloc} at {reloc_err:.4f} m, next frame tracked {after}; Sim3 "
+          f"pose graph (12-node drift loop, 12 iterations) card against "
+          f"CPU {g_err:.2e}, chi2 {g_chi2[0]:.4f} -> {g_chi2[1]:.5f}, "
+          f"{g_ms:.1f} ms wall per solve", flush=True)
+    if det is None or det.loop_id != 0:
+        _fail(f"mono (c): no loop detected ({det})")
+    if S_d is None or not abs(float(S_d.s) - drift) < 0.12 * drift:
+        _fail(f"mono (c): the drifted Sim3 was not found ({S_d}, {n_d})")
+    if not scales.get(kf1, 0.0) > 1.05 or not np.isfinite(sfe._t_cw).all():
+        _fail(f"mono (c): close_loop_sim3 re-gauge {scales}")
+    if not (lost and reloc and reloc_err < 0.15 and after):
+        _fail(f"mono (c): kidnap lost {lost} relocalized {reloc} err "
+              f"{reloc_err} next {after}")
+    if not g_err <= 1e-4:
+        _fail(f"mono (c): Sim3 pose graph card against CPU {g_err}")
+
+    # -- (d) the batched step: 4 streams at 512x384 against 4 single calls
+    from scavislam_tpu_torch.parallel.multistream import (
+        build_multistream_mono,
+        stack_streams,
+    )
+    fes, imgs = [], []
+    for s in range(MONO_STREAMS):
+        q = SyntheticSequence(cam, n_frames=3, step=MONO_STEP * (1 + s),
+                              device=dev)
+        f_s = MonoFrontend(cam, cfg, device=dev)
+        f_s.process_first_frame(q.frame(0))
+        if not f_s.process_frame(q.frame(1))[0]:
+            _fail(f"mono (d): stream {s} lost tracking")
+        fes.append(f_s)
+        imgs.append(_u8(q.frame(2)["left"]))
+    cands = [f_s._cand_device(f_s._collect_candidates()) for f_s in fes]
+    step = build_multistream_mono(None, fes[0]._cam_params,
+                                  fes[0]._cam_statics, fes[0].levels)
+    poses = [f_s._pose_dev() for f_s in fes]
+    bargs = (torch.stack(imgs), torch.stack([p[0] for p in poses]),
+             torch.stack([p[1] for p in poses]),
+             torch.stack([f_s._actkey_dev() for f_s in fes]),
+             stack_streams([f_s.poses for f_s in fes]),
+             stack_streams([f_s.points for f_s in fes]),
+             torch.stack([f_s.Lam for f_s in fes]), torch.stack(cands),
+             torch.stack([f_s._conv_dev for f_s in fes]),
+             torch.stack([f_s._pw_dev for f_s in fes]))
+    out = step(*bargs)
+    errs, gates = [], True
+    for s, f_s in enumerate(fes):
+        ref = mono_step(imgs[s], *poses[s], f_s._actkey_dev(), f_s.poses,
+                        f_s.points, f_s.Lam, cands[s], f_s._conv_dev,
+                        f_s._pw_dev, f_s._cam_params, f_s._cam_statics,
+                        f_s.levels)
+        errs.append(float(torch.abs(out.packed[s] - ref.packed).max()))
+        gates &= bool(torch.equal(out.gate[s], ref.gate))
+    ms_b = _cuda_ms(lambda: step(*bargs), 5)
+    tracked = [int(out.packed[s, 25]) for s in range(MONO_STREAMS)]
+    print(f"mono (d): build_multistream_mono at B = {MONO_STREAMS}, "
+          f"{cam.size[0]}x{cam.size[1]}: against {MONO_STREAMS} mono_step "
+          f"calls, largest packed difference {max(errs):.2e}, gates equal "
+          f"{gates}, gated per stream {tracked}; {ms_b:.2f} ms between CUDA "
+          f"events per batched step; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (max(errs) <= 1e-5 and gates):
+        _fail(f"mono (d): batched step differs {errs} gates {gates}")
+    if min(tracked) < 15:
+        _fail(f"mono (d): a stream gated {tracked}")
+    return bm.launches + bmb.launches, lambda: mono_step(*args)
+
+
+def _sim3_graph_check(dev):
+    """The twin's 12-node drift loop (tests/test_sim3_mono.py) through
+    optimize_sim3_pose_graph on the card and on the CPU: (largest node
+    difference, wall ms per solve on the card, (chi2 first, last))."""
+    from scavislam_tpu_torch.core.lie import SO3, Sim3
+    from scavislam_tpu_torch.models.sim3_graph import optimize_sim3_pose_graph
+    n = 12
+    gt = []
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        R = SO3.exp(torch.tensor([0.0, a, 0.0])).R
+        c = torch.tensor([np.cos(a), 0.0, np.sin(a)], dtype=torch.float32)
+        gt.append(Sim3(R, -(R @ c), torch.tensor(1.0)))
+    meas = [gt[k] @ gt[(k + 1) % n].inverse() for k in range(n)]
+    meas = [Sim3(S.R, S.t, S.s * 1.04) for S in meas[:-1]] + [meas[-1]]
+    est = [gt[0]]
+    for k in range(n - 1):
+        est.append(meas[k].inverse() @ est[-1])
+
+    def stack(xs, d):
+        return Sim3(torch.stack([x.R for x in xs]).to(d),
+                    torch.stack([x.t for x in xs]).to(d),
+                    torch.stack([x.s.reshape(()) for x in xs]).to(d))
+
+    ei = np.arange(n)
+    ej = (ei + 1) % n
+
+    def solve(d):
+        return optimize_sim3_pose_graph(
+            stack(est, d), ei, ej, stack(meas, d),
+            torch.ones(n, dtype=torch.bool, device=d), iters=12)
+
+    solve(dev)  # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_g, hist = solve(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    out_c, _ = solve("cpu")
+    err = max(float(torch.abs(a.cpu() - b).max())
+              for a, b in zip(out_g, out_c))
+    return err, float(np.median(walls)), (hist[0], hist[-1])
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
@@ -1364,6 +1836,13 @@ def main():
         launches += n_disk
         bl, br = _phase_stereo_methods(f0, num_disp, ms_k, nc_cfg, fps_a,
                                        frames, tmp)
+        stereo_bm.block_matching_disparity_bm.launches = 0
+        stereo_bm.block_matching_disparity_bm_batched.launches = 0
+        n_mono, mono_call = _phase_mono(cam, cfg, dev, tmp)
+        if n_mono != 0:
+            _fail(f"mono: {n_mono} block-matching launches")
+        launches += n_mono
+        launches_b += n_mono
 
     try:
         dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(
@@ -1380,6 +1859,14 @@ def main():
         except Exception as e:  # the profiler is a report, not a check
             prof = f"not measured ({type(e).__name__}: {e})"
         print(f"profile: {name} at 512x384 D={num_disp}: {prof}", flush=True)
+    try:
+        rows = _kernel_profile(mono_call, 5)
+        prof = (f"{sum(n for _, n, _ in rows):.0f} CUDA kernel launches "
+                f"per call, {sum(us for _, _, us in rows) / 1e3:.3f} ms of "
+                "kernel time summed (5 calls)")
+    except Exception as e:  # the profiler is a report, not a check
+        prof = f"not measured ({type(e).__name__}: {e})"
+    print(f"profile: mono_step at 512x384 (phase 13 a): {prof}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,

@@ -11,14 +11,17 @@ StereoFrontend``, synchronous and pipelined), the backend
 ``models.ba_solver``), loop closure and relocalization
 (``models.placerec.PlaceRecognizer`` over ``ops.descriptors`` and
 ``ops.ransac``), the whole system (``pipeline.slam_system.SlamSystem``,
-loop closure on by default) and the multistream path
-(``parallel.stream_pool.StreamPool``), with the block matcher written by
-hand in CUDA C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
+loop closure on by default), the multistream path
+(``parallel.stream_pool.StreamPool``), the monocular mode
+(``models.mono_frontend.MonoFrontend`` with ``models.mono_loop``'s Sim3
+loop closure, ``apps.mono_vo``) and checkpoints
+(``utils.serialization``), with the block matcher written by hand in CUDA
+C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
 
 Device policy: every function runs on the device of the tensors it is given.
 The entry points that hold state (``SlamSystem``, ``StereoFrontend``,
-``Backend``, ``SlamGraph``, ``PlaceRecognizer``, ``StreamPool``,
-``SyntheticSequence``) take a ``device`` argument that defaults to the CUDA
+``MonoFrontend``, ``Backend``, ``SlamGraph``, ``PlaceRecognizer``,
+``StreamPool``, ``SyntheticSequence``) take a ``device`` argument that defaults to the CUDA
 card (:func:`resolve_device`); without a card they raise unless the caller
 passes ``device="cpu"``. There is no hidden global device.
 """

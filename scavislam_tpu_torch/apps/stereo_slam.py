@@ -15,6 +15,9 @@ Usage:
 The config file is the reference's format. Everything runs on the CUDA card
 unless ``--device cpu`` is given. With ``--pipelined`` the grabber copies
 each frame onto the card from its own thread (``device_prefetch``).
+``--save-map``, ``--save-system``, ``--load-system`` and ``--save-traj-tum``
+go through utils/serialization.py; the viewers' flags are not ported yet
+and exit with code 2, naming the module each needs.
 """
 
 from __future__ import annotations
@@ -33,10 +36,6 @@ from scavislam_tpu_torch.utils.config import Config, load_config
 
 # flags whose modules are not ported yet, and the module each needs
 _UNPORTED = {
-    "save_map": "utils/serialization.py",
-    "save_system": "utils/serialization.py",
-    "load_system": "utils/serialization.py",
-    "save_traj_tum": "utils/serialization.py",
     "viz": "apps/visualize.py",
     "viz_html": "apps/map3d.py",
     "debug_mode": "apps/visualize.py",
@@ -178,6 +177,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "without one)")
+    ap.add_argument("--save-map", help="save the final SLAM graph to .npz")
+    ap.add_argument("--save-system",
+                    help="checkpoint the full system (graph + frontend "
+                         "tables + BoW index) for resume / map reuse")
+    ap.add_argument("--load-system",
+                    help="start from a saved system checkpoint; begins in "
+                         "lost mode and relocalizes against the loaded map")
+    ap.add_argument("--save-traj-tum", help="export the trajectory in TUM "
+                                            "format")
     for flag, module in _UNPORTED.items():
         ap.add_argument("--" + flag.replace("_", "-"),
                         help=f"not ported yet (needs {module})")
@@ -196,13 +204,23 @@ def main(argv=None):
 
     from scavislam_tpu_torch.pipeline.slam_system import SlamSystem, ate_rmse
 
-    vocab = np.load(args.vocabulary)["vocab"] if args.vocabulary else None
-    system = SlamSystem(
-        cam, cfg, threaded=args.threaded,
-        enable_loop_closure=not args.no_loop_closure,
-        vocabulary=vocab, pipelined=args.pipelined,
-        pipeline_depth=args.pipeline_depth, device=device,
-    )
+    if args.load_system:
+        from scavislam_tpu_torch.utils.serialization import load_system
+
+        system = load_system(
+            args.load_system, cam, cfg, threaded=args.threaded,
+            enable_loop_closure=not args.no_loop_closure,
+            pipelined=args.pipelined, pipeline_depth=args.pipeline_depth,
+            device=device)
+    else:
+        vocab = (np.load(args.vocabulary)["vocab"] if args.vocabulary
+                 else None)
+        system = SlamSystem(
+            cam, cfg, threaded=args.threaded,
+            enable_loop_closure=not args.no_loop_closure,
+            vocabulary=vocab, pipelined=args.pipelined,
+            pipeline_depth=args.pipeline_depth, device=device,
+        )
 
     grabber = None
     if args.synthetic:
@@ -238,6 +256,7 @@ def main(argv=None):
         system.shutdown()
     traj = system.export_trajectory()
     np.savetxt(args.out, traj)
+    _save_outputs(args, system)
 
     summary = system.per_mon.summary()
     summary["frames_processed"] = n
@@ -254,6 +273,19 @@ def main(argv=None):
             pairs, [gt_poses[int(fid)] for fid, _ in pairs])
     print(json.dumps(summary, indent=2))
     return summary
+
+
+def _save_outputs(args, system):
+    """The checkpoint and export flags (utils/serialization.py)."""
+    from scavislam_tpu_torch.utils import serialization
+
+    if args.save_traj_tum:
+        serialization.save_trajectory_tum(system.trajectory,
+                                          args.save_traj_tum)
+    if args.save_map:
+        serialization.save_graph(system.backend.graph, args.save_map)
+    if args.save_system:
+        serialization.save_system(system, args.save_system)
 
 
 def _frame_loop(system, frames, max_frames, device):

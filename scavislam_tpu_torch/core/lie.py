@@ -308,7 +308,9 @@ class Sim3(NamedTuple):
 
     def log(self) -> torch.Tensor:
         """Group element -> 7-vector; W is rebuilt column by column from
-        exp at unit translations and inverted by a 3x3 solve."""
+        exp at unit translations and inverted in closed form (`_solve3`:
+        elementwise, so the Sim3 pose graph's forward-mode Jacobians go
+        through no library solve)."""
         omega = SO3(self.R).log()
         sigma = torch.log(self.s)
         eye = _eye3(self.t)
@@ -318,8 +320,8 @@ class Sim3(NamedTuple):
                                sigma[..., None]], dim=-1)
             cols.append(Sim3.exp(probe).t)
         W = torch.stack(cols, dim=-1)
-        ups = torch.linalg.solve(W, self.t[..., :, None])[..., 0]
-        return torch.cat([ups, omega, sigma[..., None]], dim=-1)
+        return torch.cat([_solve3(W, self.t), omega, sigma[..., None]],
+                         dim=-1)
 
     def __matmul__(self, other):
         if isinstance(other, Sim3):
@@ -335,6 +337,18 @@ class Sim3(NamedTuple):
         Rt = self.R.transpose(-1, -2)
         s_inv = 1.0 / self.s
         return Sim3(Rt, -s_inv[..., None] * _mv(Rt, self.t), s_inv)
+
+
+def _solve3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M^-1 v for (..., 3, 3) M by the adjugate: the inverse's columns are
+    the cross products of M's rows over det M."""
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c0 = torch.linalg.cross(r1, r2)
+    c1 = torch.linalg.cross(r2, r0)
+    c2 = torch.linalg.cross(r0, r1)
+    det = torch.sum(r0 * c0, dim=-1)
+    x = c0 * v[..., 0:1] + c1 * v[..., 1:2] + c2 * v[..., 2:3]
+    return x / det[..., None]
 
 
 def se3_exp_host(xi: np.ndarray):

@@ -97,6 +97,57 @@ def load_frontend_state(fe, *, poses, points, dense, R_cw, t_cw, R_cak, t_cak,
     return fe
 
 
+def load_mono_state(fe, *, poses, points, Lam, R_cw, t_cw, actkey_id,
+                    next_kf, next_point, kf_point_ids, kf_obs, covis,
+                    pose_np, meta_anchor, meta_level, frame_id,
+                    edge_constraints=None, kf_epoch=0, map_gen=0,
+                    trajectory=None):
+    """Put a port MonoFrontend into a given state: the device tables
+    (`poses`, `points` as PoseTable/PointTable, `Lam` a (P, 3, 3) array),
+    the world pose of the chain, and the host fields (ids, per-keyframe
+    observations, covisibility, keyframe poses, point metadata, the
+    counters, the frozen DWO constraints and the trajectory as
+    (frame id, (R, t)) pairs)."""
+    from scavislam_tpu_torch.core.lie import PoseRT
+
+    dev = fe.device
+    fe.poses = PoseTable(*(x.to(dev) for x in poses))
+    fe.points = PointTable(*(x.to(dev) for x in points))
+    fe.Lam = tensor(Lam, dev, torch.float32)
+    fe._R_cw = np.asarray(R_cw, np.float32).copy()
+    fe._t_cw = np.asarray(t_cw, np.float32).copy()
+    fe._dev_R_cw = None
+    fe._dev_t_cw = None
+    fe.actkey_id = int(actkey_id)
+    fe._actkey_cache = None
+    fe.next_kf = int(next_kf)
+    fe.next_point = int(next_point)
+    fe.kf_point_ids = {int(k): np.asarray(v, np.int64).copy()
+                       for k, v in kf_point_ids.items()}
+    fe.kf_obs = {int(k): (np.asarray(v[0], np.int64).copy(),
+                          np.asarray(v[1], np.float32).copy())
+                 for k, v in kf_obs.items()}
+    fe.covis = {int(k): {int(a): int(c) for a, c in v.items()}
+                for k, v in covis.items()}
+    fe.pose_np = {int(k): (np.asarray(v[0], np.float32).copy(),
+                           np.asarray(v[1], np.float32).copy())
+                  for k, v in pose_np.items()}
+    fe._meta_anchor = np.asarray(meta_anchor, np.int64).copy()
+    fe._meta_level = np.asarray(meta_level, np.int64).copy()
+    fe.frame_id = int(frame_id)
+    fe.edge_constraints = {
+        (int(a), int(b)): tuple(np.asarray(x, np.float32).copy() for x in c)
+        for (a, b), c in (edge_constraints or {}).items()}
+    fe._kf_epoch = int(kf_epoch)
+    fe._map_gen = int(map_gen)
+    fe.trajectory = [(int(f), PoseRT.from_any(T))
+                     for f, T in (trajectory or [])]
+    fe._cand_np = None
+    fe._pending.clear()
+    fe._pending_ba = None
+    return fe
+
+
 _BA_DTYPES = {
     "anchor_slot": torch.int32, "obs_pose": torch.int32,
     "obs_point": torch.int32, "edge_i": torch.int32, "edge_j": torch.int32,

@@ -190,7 +190,9 @@ def _match_one_level(cam_l, img_level, R_cw, t_cw, xyz_w, R_aw, t_aw,
                      search_radius, source_patches_q=None):
     """Guided matching for one level's candidates: predict, gather the 3x3
     corner-bucket neighbourhood, warp the source patch, ZMSSD-score, refine
-    sub-pixel, and build the level-0 uvu observation from the disparity."""
+    sub-pixel, and build the level-0 uvu observation from the disparity.
+    With `disp0` None (monocular) the observation is (u0, v0, 0) and no
+    disparity gate applies."""
     focal, ppx, ppy = cam_l["focal"], cam_l["ppx"], cam_l["ppy"]
     w, h = cam_l["size"]
     N = xyz_w.shape[0]
@@ -236,10 +238,10 @@ def _match_one_level(cam_l, img_level, R_cw, t_cw, xyz_w, R_aw, t_aw,
         ],
         dim=-2,
     ) / det_safe[:, None, None]
+    # offsets built on the device (a host array here would be a copy that
+    # waits on the stream)
     ref_patch, warp_ok = _warp_from_source(
-        source_patches, A_c2a, offsets=_patch_offsets_int(PATCH),
-        source_q=source_patches_q,
-    )
+        source_patches, A_c2a, source_q=source_patches_q)
     cand_ok = cand_ok & det_ok & warp_ok
 
     cand_patches = bucket_patches[gy, gx].reshape(N, 9 * K, 64)
@@ -265,6 +267,8 @@ def _match_one_level(cam_l, img_level, R_cw, t_cw, xyz_w, R_aw, t_aw,
 
     s = float(2**level)
     uv0 = (corner + 0.5) * s - 0.5
+    if disp0 is None:  # monocular: uv observation, no disparity gate
+        return torch.cat([uv0, torch.zeros_like(uv0[:, :1])], dim=-1), matched
     disp_val, disp_ok = nearest_sample(disp0, uv0)
     matched = matched & disp_ok & (disp_val > 0)
     obs = torch.stack([uv0[:, 0], uv0[:, 1], uv0[:, 0] - disp_val], dim=-1)

@@ -17,9 +17,12 @@ H100: the stream axis is a leading batch dimension, and a mesh is refused
   streams: vmap's semantics are independent streams, and a loop keeps them
   exactly.
 
-Not ported yet: ``make_mesh``, ``shard_stream_batch``, ``build_sharded_ba``
-(needs the backend's ``ba_solver``) and ``build_multistream_mono`` (needs
-``mono_step``).
+- :func:`build_multistream_mono`: the per-frame MONOCULAR step
+  (``models.mono_step``) over B streams, each with its own pose / point /
+  Lambda tables; no stereo stage. The per-stream steps run as a loop.
+
+Not ported yet: ``make_mesh``, ``shard_stream_batch`` and
+``build_sharded_ba`` (the multi-card slice).
 """
 
 from __future__ import annotations
@@ -185,6 +188,30 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
                 max_reproj, method, dense_subs=subs,
                 dense_sample=dense_sample)
             for s in range(n)
+        ]
+        return stack_streams(outs)
+
+    return step
+
+
+def build_multistream_mono(mesh, cam_params, cam_statics, levels=3,
+                           zmssd_thr=0.18):
+    """The per-frame monocular step over a batch of B streams.
+
+    Returns step(imgs (B, H, W), R (B, 3, 3), t (B, 3), ak (B,), poses,
+    points (tables with a leading B axis), Lam (B, P, 3, 3), cand (B, C),
+    conv_thr (B,), prior_w (B,)) -> MonoStepOut with a leading stream axis
+    on every leaf. `mesh` must be None (one card)."""
+    from scavislam_tpu_torch.models.mono_step import mono_step
+
+    _refuse_mesh(mesh)
+
+    def step(imgs, R, t, ak, poses, points, Lam, cand, conv, pw):
+        outs = [
+            mono_step(imgs[s], R[s], t[s], ak[s], stream_slice(poses, s),
+                      stream_slice(points, s), Lam[s], cand[s], conv[s],
+                      pw[s], cam_params, cam_statics, levels, 2.0, zmssd_thr)
+            for s in range(imgs.shape[0])
         ]
         return stack_streams(outs)
 

@@ -517,3 +517,120 @@ def test_bp_on_card_matches_cpu(cuda_device, method):
         assert float((torch.abs(card.cpu() - cpu) <= 1e-3).float().mean()) >= 0.99
     else:
         assert float((card.cpu() == cpu).float().mean()) >= 0.99
+
+
+# -- the mono mode on the card ------------------------------------------------ #
+
+# the twin's mono test camera (tests/test_mono.py)
+MONO_CAM = StereoCamera.create(130.0, (63.5, 47.5), (128, 96), 0.12)
+
+
+def _mono_state(device, n=6):
+    """A MonoFrontend after `n` synchronous frames of the forward arc on
+    `device`, the next frame, and that frame's mono_step arguments, all on
+    the device."""
+    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    seq = SyntheticSequence(MONO_CAM, n_frames=n + 1, kind="forward_arc",
+                            step=0.035, device=device)
+    fe = MonoFrontend(MONO_CAM, device=device)
+    fe.process_first_frame(seq.frame(0))
+    for i in range(1, n):
+        ok, _ = fe.process_frame(seq.frame(i))
+        assert ok, i
+    nxt = seq.frame(n)
+    cand = fe._cand_device(fe._collect_candidates())
+    R, t = fe._pose_dev()
+    args = (nxt["left"], R, t, fe._actkey_dev(), fe.poses, fe.points, fe.Lam,
+            cand, fe._conv_dev, fe._pw_dev, fe._cam_params, fe._cam_statics,
+            fe.levels, 2.0, 0.18)
+    return fe, nxt, args
+
+
+@pytest.mark.cuda
+def test_mono_step_enqueues_without_sync_and_replays_as_graph(cuda_device):
+    # one mono_step with every input on the card: no synchronizing call
+    # (sync debug mode "error"); the step captured as a CUDA graph replays
+    # to a packed vector and tables torch.equal to the eager call's
+    from scavislam_tpu_torch.models.mono_step import mono_step
+    _, _, args = _mono_state(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = mono_step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mono_step(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mono_step(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(eager.packed[25]) >= 15  # the frame tracks
+    assert torch.equal(captured.packed, eager.packed)
+    assert torch.equal(captured.Lam, eager.Lam)
+    assert torch.equal(captured.points.psi, eager.points.psi)
+
+
+@pytest.mark.cuda
+def test_motion_only_ba_uv_on_card_matches_cpu(cuda_device):
+    # a noisy uv problem with outliers on the card and on the CPU: pose and
+    # residuals within 1e-5, chi2 within 1e-5 relative
+    from scavislam_tpu_torch.core.lie import SE3
+    from scavislam_tpu_torch.models.pose_optimizer import motion_only_ba_uv
+    rng = np.random.RandomState(0)
+    n = 512
+    xyz = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    rng.uniform(3, 9, n)], -1).astype(np.float32)
+    T = SE3.exp(torch.tensor([0.05, 0.02, 0.08, -0.02, 0.03, 0.01]))
+    y = xyz @ T.R.numpy().T + T.t.numpy()
+    cam = (130.0, 63.5, 47.5)
+    obs = np.stack([y[:, 0] / y[:, 2] * cam[0] + cam[1],
+                    y[:, 1] / y[:, 2] * cam[0] + cam[2]], -1)
+    obs = (obs + rng.randn(n, 2) * 0.3).astype(np.float32)
+    obs[:40] += 25.0
+    w = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    valid = rng.rand(n) > 0.1
+
+    def run(dev):
+        return motion_only_ba_uv(
+            cam, SE3.identity(device=dev), torch.tensor(xyz, device=dev),
+            torch.tensor(obs, device=dev), torch.tensor(w, device=dev),
+            torch.tensor(valid, device=dev))
+
+    rg, rc = run(cuda_device), run("cpu")
+    np.testing.assert_allclose(rg.T.R.cpu().numpy(), rc.T.R.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(rg.T.t.cpu().numpy(), rc.T.t.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(rg.residuals.cpu().numpy(),
+                               rc.residuals.numpy(), atol=1e-4)
+    assert abs(float(rg.chi2) - float(rc.chi2)) <= 1e-5 * float(rc.chi2)
+
+
+@pytest.mark.cuda
+def test_mono_relocalize_restores_tables_after_failed_confirm(cuda_device):
+    # a relocalization whose confirm fails (a noise frame, the recognizer's
+    # scoring forced to name keyframe 0) leaves the frontend with the very
+    # tables it had, bitwise: the frame step never writes them in place
+    from scavislam_tpu_torch.models import mono_loop
+    fe, _, _ = _mono_state(cuda_device)
+    pr = mono_loop.make_mono_place_recognizer(fe, score_thr=0.05)
+    pr._score = lambda words, exclude: {0: 1.0}
+    points, lam = fe.points, fe.Lam
+    psi0, lam0 = points.psi.clone(), lam.clone()
+    pose0 = (fe._R_cw.copy(), fe._t_cw.copy(), fe.actkey_id)
+    rng = np.random.RandomState(1)
+    noise = {"frame_id": 99,
+             "left": torch.tensor(rng.rand(96, 128).astype(np.float32),
+                                  device=cuda_device)}
+    assert not fe.relocalize(pr, noise)
+    torch.cuda.synchronize()
+    assert fe.points is points and fe.Lam is lam
+    assert torch.equal(points.psi, psi0) and torch.equal(lam, lam0)
+    np.testing.assert_array_equal(fe._R_cw, pose0[0])
+    np.testing.assert_array_equal(fe._t_cw, pose0[1])
+    assert fe.actkey_id == pose0[2]

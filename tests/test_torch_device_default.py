@@ -1,6 +1,6 @@
 """The port's entry points run on the CUDA card unless the caller asks for
-the CPU: ``StereoFrontend``, ``StreamPool`` and ``SyntheticSequence``
-default to ``cuda`` and, without a card, raise instead of falling back.
+the CPU: ``StereoFrontend``, ``MonoFrontend``, ``StreamPool`` and
+``SyntheticSequence`` default to ``cuda`` and, without a card, raise instead of falling back.
 
 The no-card case is made here by patching ``torch.cuda.is_available``
 inside each test, so it holds on any machine; the card's own default is
@@ -14,12 +14,14 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.io.synthetic import SyntheticSequence
 from scavislam_tpu_torch.models.frontend import StereoFrontend
+from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
 from scavislam_tpu_torch.parallel.stream_pool import StreamPool
 
 CAM = StereoCamera.create(195.0, (127.0, 95.0), (256, 192), 0.12)
 
 ENTRY_POINTS = {
     "StereoFrontend": lambda **kw: StereoFrontend(CAM, **kw),
+    "MonoFrontend": lambda **kw: MonoFrontend(CAM, **kw),
     "StreamPool": lambda **kw: StreamPool(CAM, n_streams=2, **kw),
     "SyntheticSequence": lambda **kw: SyntheticSequence(CAM, 1, **kw),
 }

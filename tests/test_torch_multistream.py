@@ -229,3 +229,61 @@ def test_mesh_and_bad_route_raise():
     with pytest.raises(ValueError, match="stereo"):
         build_multistream_frontend(None, cam_params, cam_statics,
                                    stereo="bp")
+
+
+def test_multistream_mono_matches_per_stream():
+    """build_multistream_mono against per-stream mono_step calls, as
+    tests/test_parallel.py's TestMultistreamMono holds the twin: stream
+    state from short real mono runs (different step sizes), so the check
+    covers populated point/Lambda tables and live candidate sections. Every
+    leaf of the batched output equal to the per-stream call's (the loop
+    runs the same step), the packed vector within 1e-5."""
+    from scavislam_tpu_torch.io.synthetic import (
+        SyntheticSequence as TSeq,
+    )
+    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    from scavislam_tpu_torch.models.mono_step import mono_step
+    from scavislam_tpu_torch.parallel.multistream import (
+        build_multistream_mono,
+    )
+
+    cam = interop.camera(130.0, (63.5, 47.5), (128, 96), 0.12)
+    fes, imgs = [], []
+    for s in range(B):
+        seq = TSeq(cam, n_frames=3, kind="forward_arc", step=0.03 + 0.01 * s,
+                   device=CPU)
+        fe = MonoFrontend(cam, device=CPU)
+        fe.process_first_frame(seq.frame(0))
+        ok, _ = fe.process_frame(seq.frame(1))
+        assert ok
+        fes.append(fe)
+        imgs.append(seq.frame(2)["left"])
+    cands = [torch.as_tensor(fe._collect_candidates().astype(np.int32))
+             for fe in fes]
+    step = build_multistream_mono(None, fes[0]._cam_params,
+                                  fes[0]._cam_statics, levels=3)
+    out = step(
+        torch.stack(imgs),
+        torch.stack([torch.as_tensor(fe._R_cw) for fe in fes]),
+        torch.stack([torch.as_tensor(fe._t_cw) for fe in fes]),
+        torch.tensor([max(fe.actkey_id, 0) for fe in fes]),
+        stack_streams([fe.poses for fe in fes]),
+        stack_streams([fe.points for fe in fes]),
+        torch.stack([fe.Lam for fe in fes]), torch.stack(cands),
+        torch.full((B,), fes[0].conv_q_info),
+        torch.full((B,), fes[0].prior_weight))
+    assert out.packed.shape[0] == B and out.Lam.shape[0] == B
+    for s, fe in enumerate(fes):
+        ref = mono_step(
+            imgs[s], torch.as_tensor(fe._R_cw), torch.as_tensor(fe._t_cw),
+            max(fe.actkey_id, 0), fe.poses, fe.points, fe.Lam, cands[s],
+            fe.conv_q_info, fe.prior_weight, fe._cam_params,
+            fe._cam_statics, 3, 2.0, 0.18)
+        assert ref.packed[25] >= 15  # the frame tracks
+        np.testing.assert_allclose(out.packed[s].numpy(),
+                                   ref.packed.numpy(), atol=1e-5)
+        assert torch.equal(out.gate[s], ref.gate)
+        assert torch.equal(out.points.psi[s], ref.points.psi)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        build_multistream_mono(object(), fes[0]._cam_params,
+                               fes[0]._cam_statics)

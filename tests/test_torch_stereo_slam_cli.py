@@ -4,7 +4,8 @@ SlamSystem on the same files (held as tests/test_torch_slam_system.py holds
 the systems: the same keyframes, ATE within max(1% of JAX's, 1e-4 m)), the
 pipelined CLI with the grabber's prefetch, tests/test_full_system.py's
 RGB-D replay through the port's recorder and grabber, the synthetic and
-multistream paths, and the flags whose modules are not ported yet."""
+multistream paths, the checkpoint and export flags, and the flags whose
+modules are not ported yet."""
 
 import dataclasses
 import json
@@ -240,3 +241,57 @@ def test_rgbd_dump_and_replay(tmp_path, prefetch):
                             @ PoseRT.from_any(g).inverse()).t)
             for (_, T), g in zip(system.trajectory, gt)]
     assert float(np.sqrt(np.mean(np.square(errs)))) < 0.03
+
+
+@pytest.fixture(scope="module")
+def saved_run(tree, tmp_path_factory):
+    """The CLI over the tree's first 6 frames with the four checkpoint and
+    export flags (utils/serialization.py)."""
+    _root, cfg, _gt = tree
+    tmp = tmp_path_factory.mktemp("saved")
+    paths = {"save_map": str(tmp / "map.npz"),
+             "save_system": str(tmp / "system.npz"),
+             "save_traj_tum": str(tmp / "traj_tum.txt")}
+    args = [cfg, "--max-frames", "6"]
+    for flag, p in paths.items():
+        args += ["--" + flag.replace("_", "-"), p]
+    summary, traj = _cli(tmp, *args)
+    return tmp, paths, summary, traj
+
+
+@pytest.mark.parametrize("flag", ["save_map", "save_system", "load_system",
+                                  "save_traj_tum"])
+def test_serialization_flag(tree, saved_run, flag):
+    # the four flags the CLI refused until utils/serialization.py was
+    # ported: each writes (or reads) a checkpoint the port's loaders take
+    from scavislam_tpu_torch.utils import serialization
+
+    tmp, paths, summary, traj = saved_run
+    assert summary["frames_processed"] == 6
+    if flag == "save_map":
+        g = serialization.load_graph(paths[flag], CAM, device=CPU)
+        assert len(g.vertices) == summary["keyframes"] >= 1
+        assert len(g.points) > 0
+    elif flag == "save_traj_tum":
+        rows = np.atleast_2d(np.loadtxt(paths[flag]))
+        assert rows.shape == (6, 8)
+        assert [int(r) for r in rows[:, 0]] == [fid for fid, _ in traj]
+        np.testing.assert_allclose(np.linalg.norm(rows[:, 4:8], axis=1), 1.0,
+                                   atol=1e-5)
+    elif flag == "save_system":
+        s = serialization.load_system(paths[flag], CAM, threaded=False,
+                                      device=CPU)
+        try:
+            assert s.lost
+            assert len(s.place_recognizer.location_map) >= 1
+            assert len(s.backend.graph.vertices) == summary["keyframes"]
+        finally:
+            s.shutdown()
+    else:
+        # resume from the saved system on the same tree: the run starts in
+        # lost mode, relocalizes against the loaded map and tracks on
+        summary2, traj2 = _cli(tmp, tree[1], "--load-system",
+                               paths["save_system"], "--max-frames", "4")
+        assert summary2["frames_processed"] == 4
+        assert len(traj2) >= 2
+        assert _ate(traj2[1:], tree[2]) < 0.05
