@@ -2,7 +2,8 @@
 and pipelined single-stream frontend, the 8-stream pool, the whole
 SlamSystem (frontend + backend + place recognition) as the headline
 benchmark configures it, the loop-closure workload and relocalization, the
-disk entry point, the stereo methods and the monocular mode.
+disk entry point, the stereo methods, the monocular mode, the viewers, the
+vocabulary trainer and the device mesh.
 
 Run from the root of a checkout, with no arguments:
 
@@ -155,6 +156,37 @@ non-zero before the result line):
    per solve. (d) build_multistream_mono at B = 4, 512x384, against four
    mono_step calls: packed vectors within 1e-5, gates equal.
 
+14. viewers, dictionary, mesh — (a) a SlamSystem (unthreaded, Config(),
+   512x384, keep_kf_images) on phase 4's first 20 frames: all 7 debug
+   views at pyramid levels 0 and 2 (384x512x3 and 96x128x3; the right and
+   color_disp views are full size at any level, as the twin's), each with
+   one synchronizing call under sync debug mode "warn", its PNG decoding
+   back to the rendered array, color_disp lit exactly where the disparity
+   is valid, wall ms and device ms (CUDA events); the last keyframe's view,
+   the timing plot, the top-down map with trajectory and ground truth, and
+   the map3d HTML with one keyframe per graph vertex. (b) phase 11's tree
+   through stereo_slam.main threaded + pipelined at depth 3 with --viz
+   --viz-html --timing-plot --keyframe-view --debug-mode 6 --debug-every
+   10 --watch (period 0.5 s; a tunables.cfg with debug_mode = 3 written
+   before the run): 80/80 tracked, ATE < 0.05 m, one kernel launch per
+   frame, every artifact written, status.json with the twin's keys and
+   debug_mode 3, frames/s beside phase 11 (a)'s; then mono_vo.main with
+   --viz --viz-html --watch on 40 frames of phase 13's tree. (c)
+   create_dictionary.main --synthetic with the corpus cut to 2 scenes x 8
+   frames (recipe v2: 64 images): a (4096, 128) vocabulary of unit rows;
+   descriptors per image and train_vocabulary's ms per Lloyd iteration
+   beside its bound; the directory mode on 10 of phase 11's left images.
+   (d) the mesh over the one card listed 2-4 times: the tracking step at
+   (dp, sp) = (2, 1) and (1, 2) within 1e-5 of mesh=None;
+   build_sharded_ba at sp = 2 and 4 on phase 8's last problem at the full
+   caps within 1e-4 relative of solve_ba (R, t, psi, chi2), device ms of
+   both; StreamPool of 8 streams over dp = 2 on phase 7's ticks: every
+   trajectory within 1e-5 m of phase 7's, 2 batched launches per tick and
+   no single-image launch; phase 8's unthreaded run with the solve on a
+   2-shard mesh: every frame tracked, keyframes within 1 and ATE within 1%
+   of phase 8's, a solve adopted without raising chi2. Copies between
+   cards are not measured: the machine has one card.
+
 After the phases, torch.profiler (last, so that its tracing cannot slow the
 timed phases): the device time of each kernel of one single-image
 block-matching call, and the launches and summed kernel time per BP, per
@@ -284,16 +316,18 @@ JAX_CPU_REFERENCE = "not measured"
 
 
 def _run_system(cam, cfg, dev, frames, threaded, pipelined,
-                loop_closure=False, warm_pr=False):
+                loop_closure=False, warm_pr=False, solve_mesh=None):
     """One SlamSystem run over `frames` (bench.py's headline configuration
     when threaded and pipelined; with loop closure, pr_lossless as
-    benchmarks/run_configs.py config 2 runs it). Returns its numbers."""
+    benchmarks/run_configs.py config 2 runs it; `solve_mesh` shards the
+    backend's solve). Returns its numbers."""
     from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
     system = SlamSystem(cam, cfg, threaded=threaded,
                         enable_loop_closure=loop_closure,
                         pipelined=pipelined,
                         pipeline_depth=3 if pipelined else None,
                         pr_lossless=loop_closure, device=dev)
+    system.backend.graph.solve_mesh = solve_mesh
     if warm_pr:
         system.place_recognizer.warmup()
     fe = system.frontend
@@ -1527,6 +1561,381 @@ def _sim3_graph_check(dev):
     return err, float(np.median(walls)), (hist[0], hist[-1])
 
 
+VIEW_FRAMES = 20
+# the dictionary corpus, cut from the shipped recipe's 8 scenes x 16 frames
+# to 2 x 8 (recipe v2: 8 scenes of 8 frames, 64 images) for the script's time
+DICT_SCENES, DICT_FRAMES = 2, 8
+STATUS_KEYS = {"frame", "fps", "keyframes", "actkey", "loops_closed", "lost",
+               "relocalizations", "parallax_thr", "debug_mode"}
+MESH_TOL = 1e-4  # sharded BA against solve_ba, relative
+
+
+def _decodes_to(path, img):
+    """The PNG at `path` decodes (utils/png.py) to exactly `img`."""
+    from scavislam_tpu_torch.utils.png import decode_png
+    with open(path, "rb") as f:
+        return np.array_equal(decode_png(f.read()), img)
+
+
+def _counted_syncs(fn):
+    """(fn(), synchronizing calls it made), counted under sync debug mode
+    "warn"."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _event_ms(fn, runs=5):
+    """Median ms between CUDA events around fn() (which may synchronize
+    itself, as a render's download does)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _phase_viewers(cam, cfg, dev, frames, num_disp):
+    """Phase 14 (a): the viewers on a SlamSystem's state on the card."""
+    from scavislam_tpu_torch.apps import visualize as viz
+    from scavislam_tpu_torch.apps.map3d import export_map_html
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+    system = SlamSystem(cam, cfg, threaded=False, device=dev)
+    system.frontend.keep_kf_images = True
+    try:
+        system.process_first_frame(frames[0])
+        for f in frames[1:VIEW_FRAMES]:
+            if not system.process_frame(f):
+                _fail(f"viewers (a): tracking failed at {f['frame_id']}")
+        system.finish()
+    finally:
+        system.shutdown()
+    fe, g = system.frontend, system.backend.graph
+    with tempfile.TemporaryDirectory() as out:
+        rows, ok = [], True
+        valid = (fe.last_disp > 0).cpu().numpy()
+        for mode, name in enumerate(viz.DEBUG_MODES):
+            for level in (0, 2):
+                p = os.path.join(out, f"{name}_{level}.png")
+                t0 = time.perf_counter()
+                img, n_sync = _counted_syncs(lambda: viz.render_debug_image(
+                    mode, level, fe, num_disp=num_disp, path=p))
+                wall = 1e3 * (time.perf_counter() - t0)
+                dms = _event_ms(lambda: viz.render_debug_image(
+                    mode, level, fe, num_disp=num_disp))
+                full = level == 0 or name in ("right", "color_disp")
+                want = (384, 512, 3) if full else (96, 128, 3)
+                good = (img.shape == want and n_sync == 1
+                        and _decodes_to(p, img))
+                if name == "color_disp":
+                    good &= np.array_equal(img.max(-1) > 0, valid)
+                ok &= good
+                rows.append(f"{name}@{level} {img.shape[0]}x{img.shape[1]} "
+                            f"{n_sync} sync {wall:.1f} wall ms "
+                            f"{dms:.3f} device ms"
+                            + ("" if good else " FAILED"))
+        kf = max(fe.keyframe_map)
+        timed = {}
+
+        def run(name, fn):
+            t0 = time.perf_counter()
+            r = fn()
+            timed[name] = 1e3 * (time.perf_counter() - t0)
+            return r
+
+        gts = [f["T_cw_gt"] for f in frames[:VIEW_FRAMES]]
+        paths = {k: os.path.join(out, k) for k in
+                 ("kf.png", "timing.png", "map.png", "map3d.html")}
+        kf_img = run("keyframe view", lambda: viz.render_keyframe_view(
+            fe, kf, path=paths["kf.png"]))
+        t_img = run("timing plot", lambda: viz.render_timing_plot(
+            system.per_mon, path=paths["timing.png"]))
+        m_img = run("top-down map", lambda: viz.render_map_topdown(
+            g, trajectory=system.trajectory, gt_poses=gts,
+            path=paths["map.png"]))
+        scene = run("map3d html", lambda: export_map_html(
+            g, trajectory=system.trajectory, gt_poses=gts,
+            path=paths["map3d.html"], actkey_id=fe.actkey_id))
+        ok &= (kf_img.shape == (384, 512, 3) and t_img.shape == (360, 900, 3)
+               and m_img.shape == (900, 900, 3)
+               and all(_decodes_to(paths[k], im) for k, im in (
+                   ("kf.png", kf_img), ("timing.png", t_img),
+                   ("map.png", m_img)))
+               and len(scene["kf_ids"]) == len(g.vertices)
+               and len(scene["traj"]) == len(system.trajectory))
+    print(f"viewers (a): SlamSystem unthreaded, {VIEW_FRAMES} frames at "
+          f"512x384, {fe.next_kf} keyframes, {len(g.vertices)} graph "
+          f"vertices; debug views (one download each, PNG round trip, "
+          f"color_disp lit == disparity valid): " + "; ".join(rows)
+          + "; wall ms " + ", ".join(f"{k} {v:.1f}" for k, v in timed.items())
+          + f"; map3d scene {len(scene['kf_ids'])} keyframes, "
+          f"{len(scene['points'])} points", flush=True)
+    if not ok:
+        _fail("viewers (a): a view failed its check")
+
+
+def _phase_viewer_cli(nc_cfg, frames, fps_a, tmp):
+    """Phase 14 (b): stereo_slam.main with every viewer flag on phase 11's
+    tree, then mono_vo.main with its viewers on phase 13's. Returns the
+    single-image kernel launches of the stereo run."""
+    from scavislam_tpu_torch.ops import stereo_bm
+    n = len(frames)
+    base = os.path.join(tmp, "viewer_cli")
+    wdir = os.path.join(base, "watch")
+    ddir = os.path.join(base, "debug")
+    os.makedirs(wdir)
+    with open(os.path.join(wdir, "tunables.cfg"), "w") as fh:
+        fh.write("debug_mode = 3\n")
+    arts = {f: os.path.join(base, f) for f in
+            ("map.png", "map3d.html", "timing.png", "kf.png")}
+    out = os.path.join(base, "trajectory.txt")
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    summ = _cli([nc_cfg, "--threaded", "--pipelined", "--pipeline-depth",
+                 "3", "--viz", arts["map.png"], "--viz-html",
+                 arts["map3d.html"], "--timing-plot", arts["timing.png"],
+                 "--keyframe-view", arts["kf.png"], "--debug-mode", "6",
+                 "--debug-every", "10", "--debug-out", ddir, "--watch", wdir,
+                 "--watch-period", "0.5", "--out", out])
+    launches = stereo_bm.block_matching_disparity_bm.launches
+    fids, ate = _traj_ate(out, frames)
+    debug = sorted(os.listdir(ddir)) if os.path.isdir(ddir) else []
+    watched = [f for f in ("map.png", "map3d.html", "timing.png",
+                           "status.json") if os.path.exists(
+                               os.path.join(wdir, f))]
+    with open(os.path.join(wdir, "status.json")) as fh:
+        status = json.load(fh)
+    written = [f for f, p in arts.items() if os.path.exists(p)]
+    print(f"viewers (b): stereo_slam.main --threaded --pipelined "
+          f"--pipeline-depth 3 with --viz --viz-html --timing-plot "
+          f"--keyframe-view --debug-mode 6 --debug-every 10 --watch "
+          f"(period 0.5 s): {len(fids)}/{n} tracked, {summ['keyframes']} "
+          f"keyframes, ATE {ate:.5f} m, {summ['frames_per_s']:.2f} frames/s "
+          f"(phase 11 (a), no viewers: {fps_a:.2f}); written {written}, "
+          f"{len(debug)} debug PNGs, watch dir {watched}, status {status}; "
+          f"kernel launches {launches} for {n} frames", flush=True)
+    if fids != list(range(n)) or not ate < ATE_MAX:
+        _fail(f"viewers (b): {len(fids)}/{n} tracked, ATE {ate} m")
+    if launches != n:
+        _fail(f"viewers (b): kernel launches {launches} != {n} frames")
+    if (len(written) != len(arts) or len(watched) != 4
+            or debug != [f"debug_{i:06d}.png" for i in range(0, n, 10)]):
+        _fail("viewers (b): an artifact is missing")
+    if (set(status) != STATUS_KEYS or not 0 <= status["frame"] < n
+            or status["debug_mode"] != 3):
+        _fail(f"viewers (b): status.json {status}")
+
+    mono_cfg = os.path.join(tmp, "mono_newcollege", "newcollege.cfg")
+    mdir = os.path.join(base, "mono")
+    mwatch = os.path.join(mdir, "watch")
+    marts = [os.path.join(mdir, "map.png"), os.path.join(mdir, "map3d.html"),
+             os.path.join(mwatch, "map3d.html"),
+             os.path.join(mwatch, "status.json")]
+    os.makedirs(mdir)
+    s = _mono_cli([mono_cfg, "--max-frames", "40", "--viz", marts[0],
+                   "--viz-html", marts[1], "--watch", mwatch])
+    mwritten = [os.path.relpath(p, mdir) for p in marts if os.path.exists(p)]
+    print(f"viewers (b): mono_vo.main on 40 frames of phase 13's tree with "
+          f"--viz --viz-html --watch: {s['frames']} frames, "
+          f"{s['keyframes']} keyframes, written {mwritten}", flush=True)
+    if len(mwritten) != len(marts) or s["frames"] != 40:
+        _fail("viewers (b): mono_vo's artifacts are missing")
+    return launches
+
+
+def _phase_dictionary(dev, nc_root):
+    """Phase 14 (c): create_dictionary on the card."""
+    from scavislam_tpu_torch.apps import create_dictionary as cd
+    from scavislam_tpu_torch.models.placerec import train_vocabulary
+    with tempfile.TemporaryDirectory() as out:
+        p = os.path.join(out, "vocab.npz")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cd.main(["--synthetic", "--corpus-scenes", str(DICT_SCENES),
+                     "--corpus-frames", str(DICT_FRAMES), "--out", p])
+        wall = time.perf_counter() - t0
+        vocab = np.load(p)["vocab"]
+        n_desc = int(re.search(r"clustering (\d+) descriptors",
+                               buf.getvalue()).group(1))
+        n_img = (DICT_SCENES + 4 + 2) * DICT_FRAMES  # recipe v2's scenes
+        desc = cd.synthetic_corpus_descriptors(
+            verbose=False, n_scenes=DICT_SCENES, frames_per_scene=DICT_FRAMES,
+            device=dev)
+        k = vocab.shape[0]
+        ms = {it: _event_ms(lambda it=it: train_vocabulary(
+            desc, k=k, iters=it, device=dev), runs=3) for it in (1, 11)}
+        per_iter = (ms[11] - ms[1]) / 10
+        bound = 1e3 * 2 * len(desc) * k * 128 / FP32_OPS_PER_S
+        p2 = os.path.join(out, "vocab_dir.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cd.main([nc_root, "10", "64", "--pattern", r".*left\.pnm$",
+                     "--out", p2])
+        v2 = np.load(p2)["vocab"]
+    norms = np.linalg.norm(vocab, axis=1)
+    print(f"dictionary (c): create_dictionary.main --synthetic "
+          f"--corpus-scenes {DICT_SCENES} --corpus-frames {DICT_FRAMES} at "
+          f"512x384: {n_img} images, {n_desc} descriptors "
+          f"({n_desc / n_img:.1f} per image), vocabulary {vocab.shape}, row "
+          f"norms {norms.min():.6f}..{norms.max():.6f}, {wall:.2f} s wall; "
+          f"train_vocabulary {per_iter:.3f} ms per Lloyd iteration (CUDA "
+          f"events, 11 vs 1 iterations) beside its bound {bound:.3f} ms "
+          f"(2 n k 128 flop at the fp32 peak, operations); directory mode on "
+          f"10 left images: vocabulary {v2.shape}", flush=True)
+    if vocab.shape != (4096, 128) or not np.allclose(norms, 1.0, atol=1e-3):
+        _fail("dictionary (c): the vocabulary is not 4096 unit rows")
+    if v2.shape != (64, 128) or not np.allclose(
+            np.linalg.norm(v2, axis=1), 1.0, atol=1e-3):
+        _fail("dictionary (c): the directory-mode vocabulary is wrong")
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-12)
+
+
+def _phase_mesh(cam, cfg, dev, frames, graph, sys_u, ticks, pool_traj):
+    """Phase 14 (d): the mesh over the one card listed more than once.
+    Returns the batched kernel launches of the sharded pool."""
+    from scavislam_tpu_torch.core.lie import SE3
+    from scavislam_tpu_torch.models.ba_solver import solve_ba
+    from scavislam_tpu_torch.models.slam_graph import _unpack_problem
+    from scavislam_tpu_torch.ops import stereo_bm
+    from scavislam_tpu_torch.parallel.multistream import (
+        build_multistream_step,
+        build_sharded_ba,
+        make_mesh,
+    )
+    from scavislam_tpu_torch.parallel.stream_pool import StreamPool
+
+    def mesh(n, dp):
+        return make_mesh(n, dp=dp, devices=[dev] * n)
+
+    # -- the tracking step at (dp, sp) = (2, 1) and (1, 2)
+    rng = np.random.RandomState(0)
+    B, N = 2, 4096
+    xyz = torch.as_tensor(np.stack([rng.randn(B, N) * 1.5, rng.randn(B, N),
+                                    rng.rand(B, N) * 5 + 3], -1)
+                          .astype(np.float32), device=dev)
+    T = SE3.exp(torch.as_tensor(rng.randn(B, 6).astype(np.float32) * 0.1,
+                                device=dev))
+    obs = cam.map_uvu(torch.einsum("bij,bnj->bni", T.R, xyz)
+                      + T.t[:, None])
+    args = (torch.eye(3, device=dev).expand(B, 3, 3).contiguous(),
+            torch.zeros((B, 3), device=dev), xyz, obs,
+            torch.ones((B, N), device=dev),
+            torch.ones((B, N), dtype=torch.bool, device=dev))
+    cp = (cam.focal, cam.pp[0], cam.pp[1], cam.baseline)
+    R1, t1, _ = build_multistream_step(None, cp, iters=5)(*args)
+    step_err = {}
+    for dp, sp in ((2, 1), (1, 2)):
+        Rm, tm, _ = build_multistream_step(mesh(dp * sp, dp), cp,
+                                           iters=5)(*args)
+        step_err[(dp, sp)] = max(float((Rm - R1).abs().max()),
+                                 float((tm - t1).abs().max()))
+
+    # -- the sharded solve on phase 8's last packed problem, full caps
+    cam_params, buf, caps = graph.last_problem
+    prob, _ = _unpack_problem(buf, caps)
+    ref = solve_ba(cam_params, prob, iters=2, huber=3.0)
+    ba = {}
+    for sp in (2, 4):
+        step = build_sharded_ba(mesh(sp, 1), cam_params, iters=2)
+        R2, t2, psi2, chi2 = step(prob)
+        errs = [_rel(R2, ref[0]), _rel(t2, ref[1]), _rel(psi2, ref[2]),
+                abs(float(chi2) - float(ref[3].chi2_final))
+                / max(float(ref[3].chi2_final), 1e-12)]
+        try:
+            dms = _cuda_ms(_graph_of(lambda step=step: step(prob))[0].replay,
+                           TIMING_RUNS)
+        except Exception as e:  # a report, not a check
+            dms = f"not measured ({type(e).__name__}: {e})"
+        ba[sp] = (errs, dms)
+    try:
+        ref_ms = _cuda_ms(_graph_of(lambda: solve_ba(
+            cam_params, prob, iters=2, huber=3.0))[0].replay, TIMING_RUNS)
+    except Exception as e:  # a report, not a check
+        ref_ms = f"not measured ({type(e).__name__}: {e})"
+
+    # -- the pool over a dp = 2 mesh on phase 7's ticks
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    stereo_bm.block_matching_disparity_bm_batched.launches = 0
+    pool = StreamPool(cam, cfg, n_streams=N_STREAMS, mesh=mesh(2, 2),
+                      pipeline_depth=2)
+    t0 = time.perf_counter()
+    pool.process_first_frames(ticks[0])
+    for tick in ticks[1:]:
+        pool.process_frames(tick)
+    pool.finish()
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    launches_b = stereo_bm.block_matching_disparity_bm_batched.launches
+    launches_1 = stereo_bm.block_matching_disparity_bm.launches
+    pool_err = 0.0
+    same_fids = True
+    for s in range(N_STREAMS):
+        a, b = pool.trajectories[s], pool_traj[s]
+        same_fids &= [f for f, _ in a] == [f for f, _ in b]
+        pool_err = max([pool_err] + [float(np.abs(np.asarray(x.t)
+                                                  - np.asarray(y.t)).max())
+                                     for (_, x), (_, y) in zip(a, b)])
+
+    # -- phase 8's unthreaded run with the solve sharded over 2
+    stereo_bm.block_matching_disparity_bm.launches = 0
+    r = _run_system(cam, cfg, dev, frames, threaded=False, pipelined=False,
+                    solve_mesh=mesh(2, 1))
+    launches_s = stereo_bm.block_matching_disparity_bm.launches
+    print(f"mesh (d): one card listed 2-4 times (cross-card copies not "
+          f"measured); tracking step B={B} N={N} max |diff| against "
+          f"mesh=None "
+          + ", ".join(f"(dp, sp) = {k}: {v:.2e}" for k, v in step_err.items())
+          + f"; build_sharded_ba on phase 8's last problem at caps {caps}, "
+          f"relative R/t/psi/chi2 error against solve_ba "
+          + "; ".join(f"sp={sp}: {', '.join(f'{e:.2e}' for e in errs)}, "
+                      f"device ms {dms if isinstance(dms, str) else f'{dms:.3f}'}"
+                      for sp, (errs, dms) in ba.items())
+          + f" (solve_ba alone "
+          f"{ref_ms if isinstance(ref_ms, str) else f'{ref_ms:.3f}'} device "
+          f"ms, CUDA graph replays); pool of {N_STREAMS} streams over dp = 2 "
+          f"for {len(ticks)} ticks: alive {sum(pool.alive)}/{N_STREAMS}, "
+          f"trajectories max |t diff| against phase 7 {pool_err:.2e} m, "
+          f"batched launches {launches_b}, single-image launches "
+          f"{launches_1}, {pool_s:.2f} s; unthreaded system with the solve "
+          f"on a 2-shard mesh: {r['tracked']}/{r['frames']} tracked, "
+          f"{r['keyframes']} keyframes (phase 8: {sys_u['keyframes']}), "
+          f"{r['solves']} solves (last chi2 {r['chi2'][0]:.3f} -> "
+          f"{r['chi2'][1]:.3f}), ATE {r['ate']:.5f} m (phase 8: "
+          f"{sys_u['ate']:.5f}), kernel launches {launches_s}", flush=True)
+    if max(step_err.values()) > 1e-5:
+        _fail(f"mesh (d): the sharded tracking step differs {step_err}")
+    if any(max(errs) > MESH_TOL for errs, _ in ba.values()):
+        _fail("mesh (d): the sharded solve differs from solve_ba")
+    if (not all(pool.alive) or not same_fids or pool_err > 1e-5
+            or launches_b != 2 * len(ticks) or launches_1 != 0):
+        _fail("mesh (d): the sharded pool differs from phase 7's")
+    if (r["failed"] is not None or r["tracked"] != r["frames"]
+            or abs(r["keyframes"] - sys_u["keyframes"]) > 1
+            or abs(r["ate"] - sys_u["ate"]) > 0.01 * sys_u["ate"]
+            or r["solves"] < 1 or not r["chi2"][1] <= r["chi2"][0]):
+        _fail("mesh (d): the system with a sharded solve left its bars")
+    return launches_b
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
@@ -1785,6 +2194,7 @@ def main():
     if launches_b != N_TICKS or launches_1 != 0:
         _fail(f"pool: batched launches {launches_b} != {N_TICKS} ticks or "
               f"single-image launches {launches_1} != 0")
+    pool_traj = [list(t) for t in pool.trajectories]
 
     # -- 8. the system: frontend + backend, bench.py's headline configuration
     stereo_bm.block_matching_disparity_bm.launches = 0
@@ -1843,6 +2253,15 @@ def main():
             _fail(f"mono: {n_mono} block-matching launches")
         launches += n_mono
         launches_b += n_mono
+        # -- 14. the viewers, the vocabulary trainer and the mesh
+        t14 = time.perf_counter()
+        _phase_viewers(cam, cfg, dev, frames, num_disp)
+        launches += _phase_viewer_cli(nc_cfg, frames, fps_a, tmp)
+        _phase_dictionary(dev, os.path.dirname(nc_cfg))
+        launches_b += _phase_mesh(cam, cfg, dev, frames,
+                                  sys_t["system"].backend.graph, sys_u,
+                                  ticks, pool_traj)
+        print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     try:
         dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(

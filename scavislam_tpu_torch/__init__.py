@@ -5,18 +5,22 @@ its twin's layout and public names (``core/ ops/ models/ io/ utils/``) and is
 held against it by the ``tests/test_torch_*.py`` parity tests. This package
 never imports jax or scavislam_tpu.
 
-Ported so far: the stereo visual-odometry slice (``models.frontend.
-StereoFrontend``, synchronous and pipelined), the backend
+Every module of the JAX package has its counterpart: the stereo
+visual-odometry slice (``models.frontend.StereoFrontend``, synchronous and
+pipelined, with its draw and debug state), the backend
 (``models.backend.Backend`` over ``models.slam_graph.SlamGraph`` and
 ``models.ba_solver``), loop closure and relocalization
 (``models.placerec.PlaceRecognizer`` over ``ops.descriptors`` and
 ``ops.ransac``), the whole system (``pipeline.slam_system.SlamSystem``,
 loop closure on by default), the multistream path
-(``parallel.stream_pool.StreamPool``), the monocular mode
-(``models.mono_frontend.MonoFrontend`` with ``models.mono_loop``'s Sim3
-loop closure, ``apps.mono_vo``) and checkpoints
-(``utils.serialization``), with the block matcher written by hand in CUDA
-C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
+(``parallel.stream_pool.StreamPool``) and the device mesh
+(``parallel.mesh``: sharded streams, the observation-sharded solve), the
+monocular mode (``models.mono_frontend.MonoFrontend`` with
+``models.mono_loop``'s Sim3 loop closure, ``apps.mono_vo``), checkpoints
+(``utils.serialization``), the headless viewers (``apps.visualize``,
+``apps.map3d``, ``apps.watch``) and the vocabulary trainer
+(``apps.create_dictionary``), with the block matcher written by hand in
+CUDA C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
 
 Device policy: every function runs on the device of the tensors it is given.
 The entry points that hold state (``SlamSystem``, ``StereoFrontend``,

@@ -5,9 +5,9 @@ A background FileWriter thread writes ``img_%06d_left.png`` (and
 ``_right.png``) as 8-bit gray PNGs and the float disparity as a 4-channel
 byte PNG (``img_%06d_disp.png``: the f32 bytes reinterpreted as RGBA), so
 that a recorded run replays byte-exactly through
-``io.filegrabber.FileGrabber(disp_img=True)``. The PNGs are written with
-zlib and struct (filter 0, one IDAT), which the native decoder reads; PIL
-is not needed.
+``io.filegrabber.FileGrabber(disp_img=True)``. The PNGs are written by
+utils/png.py (filter 0, one IDAT), which the native decoder reads; PIL is
+not needed.
 
 Usage: python -m scavislam_tpu_torch.apps.dump_sequence <out_dir>
 [n_frames] [--source synthetic|live|dir:PATH] [--device cpu]
@@ -18,48 +18,14 @@ from __future__ import annotations
 import argparse
 import os
 import queue
-import struct
 import threading
-import zlib
 
 import numpy as np
 import torch
 
 from scavislam_tpu_torch.apps.stereo_slam import build_camera
+from scavislam_tpu_torch.utils.png import write_png
 from scavislam_tpu_torch.utils.config import Config
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> PNG color type
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """An 8-bit non-interlaced PNG of a uint8 (H, W), (H, W, 3) or
-    (H, W, 4) image: every row filter 0, one IDAT at zlib level 1 (any
-    level decodes to the same bytes)."""
-    img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"need uint8, got {img.dtype}")
-    h, w = img.shape[:2]
-    c = 1 if img.ndim == 2 else img.shape[2]
-    if c not in _COLOR_TYPE:
-        raise ValueError(f"need 1, 3 or 4 channels, got {c}")
-    raw = np.zeros((h, 1 + w * c), np.uint8)  # column 0: filter type 0
-    raw[:, 1:] = img.reshape(h, w * c)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-            + _chunk(b"IEND", b""))
-
-
-def write_png(path: str, img: np.ndarray):
-    with open(path, "wb") as f:
-        f.write(encode_png(img))
-
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):

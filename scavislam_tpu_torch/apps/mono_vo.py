@@ -15,17 +15,20 @@ Usage:
 Everything runs on the CUDA card unless ``--device cpu`` is given. With
 ``--pipelined`` the frames reach the card ahead of the tracking loop: a
 dataset through the grabber's device prefetch, a synthetic sequence by an
-upload of each frame's uint8 left plane a few frames ahead. The viewers
-(``--viz``, ``--viz-html``, ``--watch``) are not ported yet; the flags exit
-with code 2, naming the module each needs.
+upload of each frame's uint8 left plane a few frames ahead. The viewers:
+``--viz`` (top-down map PNG, apps/visualize.py), ``--viz-html`` (the
+interactive 3-D map, apps/map3d.py) and ``--watch DIR`` (map3d.html and
+status.json refreshed every ``--watch-period`` seconds).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+import types
 from collections import deque
 
 import numpy as np
@@ -34,12 +37,21 @@ import torch
 from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.models.frontend import _to_u8
 
-# flags whose modules are not ported yet, and the module each needs
-_UNPORTED = {
-    "viz": "apps/visualize.py",
-    "viz_html": "apps/map3d.py",
-    "watch": "apps/watch.py",
-}
+def _scene_graph(fe, with_points: bool = False):
+    """Graph-shaped view of a MonoFrontend for the viewers (apps/visualize
+    and apps/map3d read .vertices / .points / .edges); the points are the
+    converged ones, downloaded once."""
+    verts = {k: types.SimpleNamespace(R=v[0], t=v[1])
+             for k, v in fe.pose_np.items()}
+    pts = {}
+    if with_points:
+        lam = fe.Lam[:, 2, 2].cpu().numpy()
+        anch = fe._meta_anchor
+        psi = fe.points.psi.cpu().numpy()
+        for pid in np.nonzero((anch >= 0) & (lam > fe.conv_q_info))[0]:
+            pts[int(pid)] = types.SimpleNamespace(
+                anchor_id=int(anch[pid]), psi=psi[pid])
+    return types.SimpleNamespace(vertices=verts, points=pts, edges={})
 
 
 def _upload_ahead(frames, device, depth=4):
@@ -103,16 +115,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "without one)")
-    for flag, module in _UNPORTED.items():
-        ap.add_argument("--" + flag.replace("_", "-"),
-                        help=f"not ported yet (needs {module})")
-    ap.add_argument("--watch-period", type=float, default=1.0,
-                    help="not ported yet (needs apps/watch.py)")
+    ap.add_argument("--viz", help="top-down map PNG at the end")
+    ap.add_argument("--viz-html",
+                    help="interactive 3-D map HTML at the end")
+    ap.add_argument("--watch", metavar="DIR",
+                    help="refresh DIR/map3d.html and DIR/status.json while "
+                         "running")
+    ap.add_argument("--watch-period", type=float, default=1.0)
     args = ap.parse_args(argv)
-    for flag, module in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag.replace('_', '-')} needs "
-                     f"scavislam_tpu_torch/{module}, which is not ported yet")
 
     from scavislam_tpu_torch.core.camera import StereoCamera
     from scavislam_tpu_torch.models import mono_loop
@@ -192,6 +202,34 @@ def main(argv=None):
                 "regauge": round(scales[det.query_id], 4),
             })
 
+    watch_state = None
+    if args.watch:
+        os.makedirs(args.watch, exist_ok=True)
+        watch_state = {"dir": args.watch, "last": 0.0,
+                       "period": args.watch_period}
+
+    def watch_tick(n):
+        now = time.monotonic()
+        if now - watch_state["last"] < watch_state["period"]:
+            return
+        watch_state["last"] = now
+        from scavislam_tpu_torch.apps.map3d import export_map_html
+
+        try:
+            export_map_html(_scene_graph(fe), trajectory=fe.trajectory,
+                            gt_poses=gt_poses or None,
+                            path=os.path.join(watch_state["dir"],
+                                              "map3d.html"),
+                            actkey_id=fe.actkey_id)
+            tmp = os.path.join(watch_state["dir"], "status.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump({"frame": n, "keyframes": fe.next_kf,
+                           "lost": lost, "relocalizations": relocs}, f)
+            os.replace(tmp, os.path.join(watch_state["dir"], "status.json"))
+        except Exception as e:  # watching never stops the run
+            print(f"watch: refresh failed: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+
     t0 = time.perf_counter()
     n = 0
     lost = False
@@ -241,6 +279,8 @@ def main(argv=None):
                     break
                 if dropped:
                     on_keyframe(fe.actkey_id, frame["left"])
+            if watch_state is not None:
+                watch_tick(n)
             n += 1
         if args.pipelined:
             for ok, dropped, _fid in fe.flush_pipeline():
@@ -304,6 +344,19 @@ def main(argv=None):
         )
 
         save_trajectory_tum(fe.trajectory, args.out)
+    if args.viz or args.viz_html:
+        graph = _scene_graph(fe, with_points=True)
+        if args.viz:
+            from scavislam_tpu_torch.apps.visualize import render_map_topdown
+
+            render_map_topdown(graph, trajectory=fe.trajectory,
+                               gt_poses=gt_poses or None, path=args.viz)
+        if args.viz_html:
+            from scavislam_tpu_torch.apps.map3d import export_map_html
+
+            export_map_html(graph, trajectory=fe.trajectory,
+                            gt_poses=gt_poses or None, path=args.viz_html,
+                            actkey_id=fe.actkey_id)
     print(json.dumps(summary, indent=1))
     return summary
 

@@ -16,8 +16,13 @@ The config file is the reference's format. Everything runs on the CUDA card
 unless ``--device cpu`` is given. With ``--pipelined`` the grabber copies
 each frame onto the card from its own thread (``device_prefetch``).
 ``--save-map``, ``--save-system``, ``--load-system`` and ``--save-traj-tum``
-go through utils/serialization.py; the viewers' flags are not ported yet
-and exit with code 2, naming the module each needs.
+go through utils/serialization.py. The viewers stand in for the reference's
+GUI: ``--viz`` (top-down map PNG), ``--viz-html`` (the interactive 3-D map,
+apps/map3d.py), ``--debug-mode`` (every Nth frame's debug view),
+``--timing-plot``, ``--keyframe-view`` (apps/visualize.py) and ``--watch``
+(live artifacts and live tunables, apps/watch.py). ``--streams N
+--streams-mesh M`` shards N synthetic streams over M cards
+(parallel/multistream.make_mesh; on the CPU, M copies of the CPU device).
 """
 
 from __future__ import annotations
@@ -33,17 +38,6 @@ import torch
 from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.utils.config import Config, load_config
-
-# flags whose modules are not ported yet, and the module each needs
-_UNPORTED = {
-    "viz": "apps/visualize.py",
-    "viz_html": "apps/map3d.py",
-    "debug_mode": "apps/visualize.py",
-    "timing_plot": "apps/visualize.py",
-    "keyframe_view": "apps/visualize.py",
-    "watch": "apps/watch.py",
-}
-
 
 def build_camera(cfg: Config) -> StereoCamera:
     return StereoCamera.create(
@@ -77,13 +71,17 @@ def run_streams(args, cfg: Config, cam: StereoCamera, device):
     if not args.synthetic:
         print("--streams drives synthetic sequences; "
               f"defaulting to --synthetic {n}", file=sys.stderr)
+    mesh = None
     if args.streams_mesh != 0:
         ncards = torch.cuda.device_count() if device.type == "cuda" else 1
         want = args.streams_mesh if args.streams_mesh > 0 else ncards
         if want > 1 and B % want == 0:
-            from scavislam_tpu_torch.parallel.multistream import _refuse_mesh
+            from scavislam_tpu_torch.parallel.multistream import make_mesh
 
-            _refuse_mesh(want)
+            # pure data parallel (sp = 1); off the card, the CPU device
+            # stands in for each member of the mesh
+            mesh = make_mesh(want, dp=want, devices=(
+                None if device.type == "cuda" else [device] * want))
 
     # render every stream's frames to uint8 once, before timing
     seqs = [
@@ -104,7 +102,7 @@ def run_streams(args, cfg: Config, cam: StereoCamera, device):
                          "right": _u8(f["right"])})
         frames_u8.append(tick)
 
-    pool = StreamPool(cam, cfg, n_streams=B, mesh=None,
+    pool = StreamPool(cam, cfg, n_streams=B, mesh=mesh,
                       pipeline_depth=args.pipeline_depth or 2, device=device)
     pool.process_first_frames(frames_u8[0])
     # warm the remaining programs (consume path + spawn) before timing
@@ -137,7 +135,7 @@ def run_streams(args, cfg: Config, cam: StereoCamera, device):
 
     summary = {
         "streams": B,
-        "mesh": None,
+        "mesh": None if mesh is None else dict(mesh.shape),
         "frames_per_stream": n,
         "aggregate_fps": round(B * timed / dt, 1),
         "per_stream_fps": round(timed / dt, 1),
@@ -171,9 +169,9 @@ def main(argv=None):
                     help="run N concurrent synthetic streams through one "
                          "batched frame step per tick")
     ap.add_argument("--streams-mesh", type=int, default=-1,
-                    help="shard the stream batch over this many cards (-1: "
-                         "every card when the streams divide evenly; 0: one "
-                         "card); more than one card is not ported yet")
+                    help="shard the stream batch over a dp-mesh of this "
+                         "many cards (-1: every card when the streams divide "
+                         "evenly; 0: one card)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "without one)")
@@ -186,14 +184,33 @@ def main(argv=None):
                          "lost mode and relocalizes against the loaded map")
     ap.add_argument("--save-traj-tum", help="export the trajectory in TUM "
                                             "format")
-    for flag, module in _UNPORTED.items():
-        ap.add_argument("--" + flag.replace("_", "-"),
-                        help=f"not ported yet (needs {module})")
+    ap.add_argument("--viz", help="render a top-down map PNG at the end")
+    ap.add_argument("--viz-html",
+                    help="export the interactive 3-D map viewer (one "
+                         "self-contained HTML file) at the end")
+    ap.add_argument("--debug-mode", type=int, default=-1,
+                    help="0-6: per-frame debug view PNGs (residual/cur/prev/"
+                         "dx/dy/right/color-disp, the GUI's ui.debug)")
+    ap.add_argument("--debug-level", type=int, default=0,
+                    help="pyramid level for --debug-mode (ui.debug_level)")
+    ap.add_argument("--debug-out", default="debug_frames",
+                    help="directory for --debug-mode PNGs")
+    ap.add_argument("--debug-every", type=int, default=10,
+                    help="write every Nth frame's debug view")
+    ap.add_argument("--timing-plot",
+                    help="stacked per-stage timing histogram PNG (the GUI's "
+                         "live plotter)")
+    ap.add_argument("--keyframe-view",
+                    help="PNG of the last keyframe's image + anchored points "
+                         "(the GUI's ui.show_keyframe view)")
+    ap.add_argument("--watch", metavar="DIR",
+                    help="live observability: refresh map/debug/timing PNGs "
+                         "+ status.json in DIR and re-read DIR/tunables.cfg "
+                         "while running (the headless analogue of the "
+                         "reference's Pangolin GUI + Vars)")
+    ap.add_argument("--watch-period", type=float, default=1.0,
+                    help="watch refresh period in seconds (also live-tunable)")
     args = ap.parse_args(argv)
-    for flag, module in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag.replace('_', '-')} needs "
-                     f"scavislam_tpu_torch/{module}, which is not ported yet")
 
     device = resolve_device(args.device)
     cfg = load_config(args.config) if args.config else Config()
@@ -246,9 +263,14 @@ def main(argv=None):
             device=device,
         )
         frames = iter(grabber)
+    if args.keyframe_view:
+        # the keyframe view reads stored keyframe pyramids; retention is
+        # off by default (device memory on long runs)
+        system.frontend.keep_kf_images = True
     try:
-        n, loop_s, wait_s, gt_poses = _frame_loop(system, frames,
-                                                  args.max_frames, device)
+        n, loop_s, wait_s, gt_poses = _frame_loop(
+            system, frames, args.max_frames, device,
+            _live_viewers(args, cfg, system))
         system.finish()
     finally:
         if grabber is not None:
@@ -257,6 +279,7 @@ def main(argv=None):
     traj = system.export_trajectory()
     np.savetxt(args.out, traj)
     _save_outputs(args, system)
+    _final_views(args, system, gt_poses)
 
     summary = system.per_mon.summary()
     summary["frames_processed"] = n
@@ -288,10 +311,71 @@ def _save_outputs(args, system):
         serialization.save_system(system, args.save_system)
 
 
-def _frame_loop(system, frames, max_frames, device):
-    """Feed `frames` to `system` until they end, `max_frames` were fed or
-    tracking fails. Returns (frames fed, seconds and grabber wait over
-    frames 2.. to the frontend's flush, ground-truth poses seen)."""
+def _live_viewers(args, cfg, system):
+    """The per-frame viewers (--watch, --debug-mode) as one callable
+    after(n, gt_poses) -> True when the watcher asks to quit; None when
+    neither flag is given."""
+    import os
+
+    num_disp = 16 * cfg.ui.num_disp16
+    watcher = None
+    if args.watch:
+        from scavislam_tpu_torch.apps.watch import Watcher
+
+        watcher = Watcher(args.watch, system, period=args.watch_period,
+                          num_disp=num_disp,
+                          debug_mode=max(args.debug_mode, 0))
+    if args.debug_mode >= 0:
+        os.makedirs(args.debug_out, exist_ok=True)
+    if watcher is None and args.debug_mode < 0:
+        return None
+
+    def after(n, gt_poses):
+        if watcher is not None:
+            watcher.tick(n, gt_poses)
+            if watcher.quit:
+                print("watch: quit requested", file=sys.stderr)
+                return True
+        if args.debug_mode >= 0 and n % max(args.debug_every, 1) == 0:
+            from scavislam_tpu_torch.apps.visualize import render_debug_image
+
+            render_debug_image(args.debug_mode, args.debug_level,
+                               system.frontend, num_disp=num_disp,
+                               path=f"{args.debug_out}/debug_{n:06d}.png")
+        return False
+
+    return after
+
+
+def _final_views(args, system, gt_poses):
+    """The end-of-run viewers: --viz, --viz-html, --timing-plot and
+    --keyframe-view (the last keyframe)."""
+    from scavislam_tpu_torch.apps import visualize
+
+    if args.viz:
+        visualize.render_map_topdown(
+            system.backend.graph, trajectory=system.trajectory,
+            gt_poses=gt_poses or None, path=args.viz)
+    if args.viz_html:
+        from scavislam_tpu_torch.apps.map3d import export_map_html
+
+        export_map_html(
+            system.backend.graph, trajectory=system.trajectory,
+            gt_poses=gt_poses or None, path=args.viz_html,
+            actkey_id=system.frontend.actkey_id)
+    if args.timing_plot:
+        visualize.render_timing_plot(system.per_mon, path=args.timing_plot)
+    if args.keyframe_view and system.frontend.keyframe_map:
+        visualize.render_keyframe_view(
+            system.frontend, max(system.frontend.keyframe_map),
+            path=args.keyframe_view)
+
+
+def _frame_loop(system, frames, max_frames, device, after=None):
+    """Feed `frames` to `system` until they end, `max_frames` were fed,
+    tracking fails or `after(n, gt_poses)` (called after each frame) asks
+    to stop. Returns (frames fed, seconds and grabber wait over frames 2..
+    to the frontend's flush, ground-truth poses seen)."""
     n, wait_s, t_start, gt_poses = 0, 0.0, None, []
     while True:
         t0 = time.perf_counter()
@@ -306,6 +390,8 @@ def _frame_loop(system, frames, max_frames, device):
             system.process_first_frame(frame)
         elif not system.process_frame(frame):
             print("FAILURE! tracking lost at frame", n, file=sys.stderr)
+            break
+        if after is not None and after(n, gt_poses):
             break
         n += 1
         if n == 2:

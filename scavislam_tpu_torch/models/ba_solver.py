@@ -23,7 +23,14 @@ blocked, as in the twin:
 
 The LM loop runs `iters` rounds with masked accepts and no host read.
 Observation weighting: diag(4^-level, 4^-level, 0.333^2); Huber width 3;
-initial lambda 50. The sharded path (`sp_axis`) is not ported.
+initial lambda 50.
+
+With ``sp_axis`` (a parallel.mesh.MeshAxis: the shard group, not a name)
+the observation axis is split into one contiguous chunk per device of the
+axis: each shard builds the partial H, b and chi2 of its chunk (the
+replicated edges count on shard 0 only, as in the twin), the partials are
+summed in shard order on shard 0's device, and the LM runs on the summed
+system there.
 """
 
 from __future__ import annotations
@@ -180,20 +187,56 @@ def _disp_info_vec(prob, disp_info):
     return disp_info
 
 
-def _no_sharding(sp_axis):
+class _ObsShards:
+    """A problem's observation axis split over a mesh axis: shard k holds
+    the k-th contiguous chunk of the observations, and copies of the pose,
+    point and edge tables, on the axis's k-th device."""
+
+    def __init__(self, prob: BAProblem, axis, disp_info=None):
+        self.axis = axis
+        self.devices = axis.devices
+        n = len(self.devices)
+        O = prob.obs_pose.shape[0]
+        if O % n:
+            raise ValueError(f"obs capacity {O} must divide the "
+                             f"{axis.name}-axis size {n}")
+        k = O // n
+        obs = ("obs_pose", "obs_point", "obs_uvu", "obs_weight", "obs_valid")
+        self.probs, self.disp_info = [], []
+        for i, d in enumerate(self.devices):
+            local = prob._replace(**{f: getattr(prob, f)[i * k:(i + 1) * k]
+                                     for f in obs})
+            self.probs.append(BAProblem(*(x.to(d) for x in local)))
+            self.disp_info.append(None if disp_info is None
+                                  else disp_info[i * k:(i + 1) * k].to(d))
+
+    def sum(self, fn, *state):
+        """fn(shard, local problem, local disp_info, *state on the shard's
+        device) for every shard (all launched first), summed in shard
+        order on shard 0's device."""
+        parts = [fn(i, p, di, *(x.to(d) for x in state))
+                 for i, (d, p, di) in enumerate(zip(
+                     self.devices, self.probs, self.disp_info))]
+        return self.axis.psum(parts, self.devices[:1])[0]
+
+
+def _chi2(cam_params, prob, R, t, psi, huber, sp_axis=None, disp_info=None,
+          edges=True):
+    """chi2 at (R, t, psi); with `sp_axis` (an _ObsShards) summed over the
+    shards, the edges counted on shard 0 only."""
     if sp_axis is not None:
-        raise NotImplementedError(
-            "sp_axis: the observation-sharded BA is not ported (one card)")
-
-
-def _chi2(cam_params, prob, R, t, psi, huber, sp_axis=None, disp_info=None):
-    _no_sharding(sp_axis)
+        return sp_axis.sum(
+            lambda k, p, di, R_, t_, psi_: _chi2(
+                cam_params, p, R_, t_, psi_, huber, None, di, edges=k == 0),
+            R, t, psi)
     r, mask, _ = _obs_residuals(cam_params, prob, R, t, psi)
     info = torch.stack([prob.obs_weight, prob.obs_weight,
                         _disp_info_vec(prob, disp_info)], dim=-1)
     s = torch.sum(r * r * info, dim=-1)
     w = _huber_weight(s, huber)
     chi_obs = torch.sum(torch.where(mask, w * s, torch.zeros_like(s)))
+    if not edges:
+        return chi_obs
     d, emask = _edge_residuals(prob, R, t)
     se = torch.einsum("ni,nij,nj->n", d, prob.edge_info, d)
     chi_e = torch.sum(torch.where(emask, se, torch.zeros_like(se)))
@@ -201,14 +244,22 @@ def _chi2(cam_params, prob, R, t, psi, huber, sp_axis=None, disp_info=None):
 
 
 def _build_normal_equations(cam_params, prob: BAProblem, R, t, psi, huber,
-                            sp_axis=None, anchor_perm=None, disp_info=None):
+                            sp_axis=None, anchor_perm=None, disp_info=None,
+                            edges=True):
     """One linearization: dense block H_cc (P, P, 6, 6), W (P, L, 6, 3),
     H_pp (L, 3, 3), gradients g_c (P, 6), g_p (L, 3).
 
     `anchor_perm` is the twin's sorted-scatter hint for the W blocks; the
-    sum is the same up to summation order, so it is accepted and unused."""
-    _no_sharding(sp_axis)
+    sum is the same up to summation order, so it is accepted and unused.
+    With `sp_axis` (an _ObsShards) the shards' partial systems are summed;
+    the edges contribute from shard 0 only (`edges`)."""
     del anchor_perm
+    if sp_axis is not None:
+        return sp_axis.sum(
+            lambda k, p, di, R_, t_, psi_: _build_normal_equations(
+                cam_params, p, R_, t_, psi_, huber, None, None, di,
+                edges=k == 0),
+            R, t, psi)
     focal, ppx, ppy, baseline = cam_params
     P = prob.R.shape[0]
     L = prob.psi.shape[0]
@@ -284,6 +335,8 @@ def _build_normal_equations(cam_params, prob: BAProblem, R, t, psi, huber,
                               torch.einsum("nij,ni->nj", JaW, r)]))
     g_p = torch.zeros((L, 3), dtype=torch.float32, device=dev)
     g_p.index_add_(0, pidx, torch.einsum("nij,ni->nj", JpW, r))
+    if not edges:
+        return Hcc.reshape(P, P, 6, 6), Wcp, Hpp, g_c, g_p
 
     # --- pose-graph edges
     d, emask = _edge_residuals(prob, R, t)
@@ -340,12 +393,12 @@ def _inv3x3(M):
 
 
 def _linearize(cam_params, prob, R, t, psi, lam, free, huber, anchor_perm,
-               disp_info):
+               disp_info, shards=None):
     """Normal equations at (R, t, psi), damped and masked: fixed/invalid
     poses get zero rows and columns (their identity diagonal comes in
     `_schur`). Returns (Hcc, Wcp, Hpp^-1, g_c, g_p)."""
     Hcc, Wcp, Hpp, g_c, g_p = _build_normal_equations(
-        cam_params, prob, R, t, psi, huber, None, anchor_perm, disp_info)
+        cam_params, prob, R, t, psi, huber, shards, anchor_perm, disp_info)
     Hpp_inv = _inv3x3(Hpp + lam * torch.eye(3, dtype=Hpp.dtype,
                                             device=Hpp.device)[None])
     free_m = free[:, None] * free[None, :]
@@ -383,18 +436,19 @@ def _factor_solve(S, rhs, Wcp, Hpp_inv, g_p, free, point_valid):
 
 
 def _lm_round(cam_params, prob, R, t, psi, lam, chi2, free, huber,
-              anchor_perm, disp_info):
+              anchor_perm, disp_info, shards=None):
     """One LM round: linearize, Schur-reduce, factor, back-substitute, and
     accept the step if chi2 drops."""
     Hcc, Wcp, Hpp_inv, g_c, g_p = _linearize(
-        cam_params, prob, R, t, psi, lam, free, huber, anchor_perm, disp_info)
+        cam_params, prob, R, t, psi, lam, free, huber, anchor_perm, disp_info,
+        shards)
     S, rhs = _schur(Hcc, Wcp, Hpp_inv, g_c, g_p, lam, free)
     dc, dp = _factor_solve(S, rhs, Wcp, Hpp_inv, g_p, free, prob.point_valid)
     # apply: left-mult pose update, additive psi update
     Te = SE3.exp(dc)
     R_new, t_new = Te.R @ R, _mv(Te.R, t) + Te.t
     psi_new = psi + dp
-    chi2_new = _chi2(cam_params, prob, R_new, t_new, psi_new, huber, None,
+    chi2_new = _chi2(cam_params, prob, R_new, t_new, psi_new, huber, shards,
                      disp_info)
     accept = chi2_new < chi2
     return (torch.where(accept, R_new, R), torch.where(accept, t_new, t),
@@ -409,24 +463,28 @@ def solve_ba(
     iters: int = 2,
     huber: float = 3.0,
     lambda0: float = 50.0,
-    sp_axis=None,
+    sp_axis=None,  # parallel.mesh.MeshAxis: shard the observation axis
     anchor_perm=None,
     disp_info=None,  # (O,) third-component info; None = stereo 0.333^2
 ):
     """LM with `iters` accepted-or-rejected rounds (g2o parity: 2 iterations,
     Huber 3, lambda0 = 50). Returns (R, t, psi, BAStats), all on the
-    problem's device, with no host sync."""
-    _no_sharding(sp_axis)
+    problem's device (with `sp_axis`: on the axis's first device), with no
+    host sync."""
+    shards = None
+    if sp_axis is not None:
+        shards = _ObsShards(prob, sp_axis, disp_info)
+        prob = BAProblem(*(x.to(shards.devices[0]) for x in prob))
     R, t, psi = prob.R, prob.t, prob.psi
     # a device fill, not a host copy: torch.tensor(x, device=cuda) syncs
     lam = torch.full((), lambda0, dtype=torch.float32, device=R.device)
-    chi2_0 = _chi2(cam_params, prob, R, t, psi, huber, None, disp_info)
+    chi2_0 = _chi2(cam_params, prob, R, t, psi, huber, shards, disp_info)
     free = (prob.pose_valid & ~prob.pose_fixed).to(torch.float32)
     chi2 = chi2_0
     for _ in range(iters):
         R, t, psi, lam, chi2 = _lm_round(cam_params, prob, R, t, psi, lam,
                                          chi2, free, huber, anchor_perm,
-                                         disp_info)
+                                         disp_info, shards)
     stats = BAStats(
         chi2_0, chi2, torch.sum(prob.obs_valid.to(torch.int32)),
         torch.sum(prob.edge_valid.to(torch.int32)),

@@ -50,7 +50,6 @@ from scavislam_tpu_torch.models.slam_graph import (
     OUTER,
     GraphPoint,
     SlamGraph,
-    _sharded_packed_solver,
 )
 from scavislam_tpu_torch.ops.fast import corner_buckets_prefiltered
 from scavislam_tpu_torch.pipeline.monitors import (
@@ -78,10 +77,10 @@ def _resolve_solve_device(index: int, device: torch.device):
 
 
 def _resolve_solve_mesh(n: int, device: torch.device):
-    """graph.solve_mesh device count: 0/1 = off. With fewer cards than asked
-    the twin falls back to the single-device solve with a warning, and so
-    does the port; with enough cards the twin shards the solve, which the
-    port does not, so it raises."""
+    """graph.solve_mesh device count -> a (dp=1, sp=n) Mesh of the first n
+    cards (None = off). With fewer cards than asked (on the CPU: one
+    device) it falls back to the single-device solve with a warning, as
+    the twin does: configs are shared across hosts."""
     if n is None or n <= 1:
         return None
     have = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -89,7 +88,9 @@ def _resolve_solve_mesh(n: int, device: torch.device):
         print(f"backend: graph.solve_mesh={n} but only {have} "
               "device(s) present; single-device solve", file=sys.stderr)
         return None
-    _sharded_packed_solver(n)
+    from scavislam_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, dp=1)
 
 
 # the thread body's sleep after a poll that found no work (the twin's 1 ms)

@@ -41,7 +41,14 @@ With ``framepipe.rectify_frame`` set, every stack is undistorted and
 rectified (``ops.rectify.Rectifier``, maps resident on the device) ahead of
 the frame step, on the synchronous and the pipelined path.
 
-Not ported yet: ``draw_data``.
+Draw and debug state (what apps/visualize.py and apps/watch.py read):
+``draw_data.tracked_uv`` holds the consumed frame's gated observations
+(host numpy the policy already fetched); ``prev_pyr``, ``last_pyr``,
+``last_dx``, ``last_dy``, ``last_disp`` and ``last_right`` are references to
+the last dispatched step's device tensors, set at every dispatch and never
+copied or downloaded here. With ``keep_kf_images`` set, each keyframe's
+pyramid and disparity stay in ``keyframe_map[kf_id]`` (off by default:
+they hold device memory for the whole run).
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from __future__ import annotations
 import time
 import warnings
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -146,6 +153,15 @@ class AddToOptimizer:
     ready_event: object = None
 
 
+@dataclass
+class FrontendDrawData:
+    """Minimal draw snapshot (parity surface: StereoFrontendDrawData,
+    stereo_frontend.h:41-82)."""
+
+    tracked_uv: np.ndarray = field(default_factory=lambda: np.zeros((0, 2)))
+    new_uv: np.ndarray = field(default_factory=lambda: np.zeros((0, 2)))
+
+
 class StereoFrontend:
     """Public surface mirrors stereo_frontend.h:85-128."""
 
@@ -167,10 +183,22 @@ class StereoFrontend:
         self.kf_point_ids: dict[int, np.ndarray] = {}
         self.covis: dict[int, dict[int, int]] = {}
         self.keyframe_map: dict[int, dict] = {}
+        # keep each keyframe's device pyramid and disparity in keyframe_map
+        # for the keyframe view (apps/visualize.render_keyframe_view); off
+        # by default, since they hold device memory for the whole run
+        self.keep_kf_images = False
         self.pose_np: dict[int, tuple] = {}  # host mirror of keyframe poses
         self.actkey_id = -1
         self.neighborhood = None
         self.to_optimizer_stack: list[AddToOptimizer] = []
+        self.draw_data = FrontendDrawData()
+        # the debug views' device state: references to the last dispatched
+        # step's tensors (and the step before's pyramid), never copied here
+        self.prev_pyr = None
+        self.last_pyr = None
+        self.last_dx = self.last_dy = None
+        self.last_disp = None
+        self.last_right = None
         self.per_mon = None  # optional named-stage timer (set by SlamSystem)
         # (K, 128) BoW vocabulary tensor on this frontend's device: set, the
         # keyframe spawn also computes the place-recognition block
@@ -330,6 +358,11 @@ class StereoFrontend:
         )
         self._dev_R_cw = out.R_cw
         self._dev_t_cw = out.t_cw
+        self.prev_pyr = self.last_pyr
+        self.last_pyr = out.pyr
+        self.last_dx, self.last_dy = out.dx, out.dy
+        self.last_disp = out.disp
+        self.last_right = stacked[1]
         return out
 
     def _prefetched(self, frame):
@@ -387,7 +420,7 @@ class StereoFrontend:
             out, kf_id, None)
         self.kf_point_ids[kf_id] = new_ids
         self.covis[kf_id] = {}
-        self.keyframe_map[kf_id] = {"T_kw": T_np}
+        self.keyframe_map[kf_id] = self._kf_entry(out, T_np)
         pkt = AddToOptimizer(
             kf_id, T_np, new_ids, new_psi, new_lvl, new_uvu,
             np.zeros(0, np.int64), np.zeros((0, 3), np.float32),
@@ -398,6 +431,13 @@ class StereoFrontend:
         )
         self.to_optimizer_stack.append(pkt)
         return pkt
+
+    def _kf_entry(self, out: FrontendStepOut, T_np) -> dict:
+        """A keyframe's keyframe_map entry: its pose, and its device
+        pyramid and disparity when keep_kf_images is set."""
+        if self.keep_kf_images:
+            return {"pyr": out.pyr, "disp": out.disp, "T_kw": T_np}
+        return {"T_kw": T_np}
 
     def _ready_event(self):
         """A CUDA event behind everything the frontend enqueued so far on
@@ -439,6 +479,7 @@ class StereoFrontend:
         self._tracked_ids = cand_ids[gate]
         self._tracked_obs = obs_all[gate]
         self._tracked_levels = levels_arr[gate]
+        self.draw_data.tracked_uv = obs_all[gate][:, :2]
 
         dropped = False
         switched = self._maybe_switch_keyframe(float(t_norm))
@@ -653,6 +694,7 @@ class StereoFrontend:
         self._tracked_ids = cand_ids[gate]
         self._tracked_obs = obs_all[gate]
         self._tracked_levels = levels_arr[gate]
+        self.draw_data.tracked_uv = obs_all[gate][:, :2]
 
         switched = self._maybe_switch_keyframe(
             float(np.linalg.norm(self._t_cak)))
@@ -868,7 +910,7 @@ class StereoFrontend:
             self.covis.setdefault(a, {})[kf_id] = c
 
         rec = self._spawn_dispatch(out, kf_id, tracked_obs)
-        self.keyframe_map[kf_id] = {"T_kw": T_np}
+        self.keyframe_map[kf_id] = self._kf_entry(out, T_np)
         pkt_args = dict(
             kf_id=kf_id, T_cw=T_np,
             tracked_ids=np.asarray(tracked_ids).copy(),

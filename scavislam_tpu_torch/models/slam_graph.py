@@ -18,8 +18,10 @@ Division of labour, as in the twin:
 home through a :class:`Fetch` (pinned copy behind a CUDA event) and is
 written back at the next ``adopt_pending()``. ``solve_log`` records each
 adopted solve's device milliseconds, from a CUDA event recorded at dispatch
-to the fetch's event (host wall time on the CPU). The observation-sharded
-solve (``solve_mesh``) is not ported.
+to the fetch's event (host wall time on the CPU). With ``solve_mesh`` (a
+parallel.mesh.Mesh) the solve shards its observation axis over the mesh's
+"sp" axis (models.ba_solver's ``sp_axis``): one packed upload to the first
+"sp" device, one chunk of the observations per shard.
 
 Deviation kept from the twin: the ROOT pose is fixed during each solve.
 """
@@ -181,9 +183,9 @@ class SlamGraph:
         self.device = resolve_device(device)
         self.solve_device = (torch.device(solve_device)
                              if solve_device is not None else None)
-        if solve_mesh is not None:
-            _sharded_packed_solver(solve_mesh)
-        self.solve_mesh = None
+        # a Mesh: shard the solve's observation axis over its "sp" axis
+        # (_sharded_packed_solver). Mutually exclusive with solve_device.
+        self.solve_mesh = solve_mesh
         self.covis_thr = covis_thr
         self.inner_window_size = inner_window_size
         self.double_window_size = double_window_size
@@ -692,7 +694,9 @@ class SlamGraph:
         cam_params = (self.cam.focal, self.cam.pp[0], self.cam.pp[1],
                       self.cam.baseline)
 
-        dev = self.solve_device or self.device
+        dev = (self.solve_mesh.axis("sp").devices[0]
+               if self.solve_mesh is not None
+               else self.solve_device or self.device)
         t0 = time.perf_counter()
         start = None
         if dev.type == "cuda":
@@ -704,9 +708,14 @@ class SlamGraph:
             buf_dev = torch.from_numpy(buf).to(dev)
         # the last problem dispatched, kept for timing the solve alone
         self.last_problem = (cam_params, buf_dev, (P, L, O, E))
-        R_new, t_new, psi_new, stats = _solve_packed(
-            cam_params, buf_dev, (P, L, O, E), num_iters, huber,
-        )
+        if self.solve_mesh is not None:
+            solver = _sharded_packed_solver(
+                self.solve_mesh, cam_params, (P, L, O, E), num_iters, huber)
+            R_new, t_new, psi_new, stats = solver(buf_dev)
+        else:
+            R_new, t_new, psi_new, stats = _solve_packed(
+                cam_params, buf_dev, (P, L, O, E), num_iters, huber,
+            )
         # ONE packed download for everything
         packed_dev = torch.cat([
             R_new.reshape(-1), t_new.reshape(-1), psi_new.reshape(-1),
@@ -918,13 +927,29 @@ def _solve_packed(cam_params, buf, caps, num_iters, huber):
                     anchor_perm=aperm)
 
 
-def _sharded_packed_solver(mesh, *args, **kwargs):
-    """The twin shards the solve's observation axis over a device mesh with
-    one all-reduce of the normal equations. Not ported: the port solves on
-    one card."""
-    raise NotImplementedError(
-        "solve_mesh: the mesh-sharded DWO solve is not ported; the port "
-        "solves on one card (leave graph.solve_mesh at 0)")
+def _sharded_packed_solver(mesh, cam_params, caps, num_iters, huber,
+                           axis="sp"):
+    """Mesh-sharded twin of `_solve_packed`: the packed problem buffer is
+    uploaded once (to the axis's first device) and unpacked there; each
+    shard takes its chunk of the OBSERVATION axis, builds partial normal
+    equations, and their sum in shard order assembles the full Schur
+    system, which is factorized on the first device. The twin's sorted
+    anchor-scatter permutation is global to the obs axis and does not
+    survive per-shard slicing, so the sharded path scatters unsorted (the
+    port does so on every path). Returns solver(buf)."""
+    group = mesh.axis(axis)
+    n = group.size
+    O_ = caps[2]
+    if O_ % n:
+        raise ValueError(
+            f"obs capacity {O_} must divide the {axis}-axis size {n}")
+
+    def solver(buf):
+        prob, _ = _unpack_problem(buf, caps)
+        return solve_ba(cam_params, prob, iters=num_iters, huber=huber,
+                        sp_axis=group)
+
+    return solver
 
 
 def _pose_f32(R, t) -> PoseRT:

@@ -1,28 +1,35 @@
-"""Multi-stream batched steps (port of scavislam_tpu.parallel.multistream,
-one-device case).
+"""Multi-stream batched steps over a device mesh (port of
+scavislam_tpu.parallel.multistream).
 
 The twin runs N independent camera streams as one vmapped program,
-optionally shard_mapped over a ("dp", "sp") device mesh. The port runs on one
-H100: the stream axis is a leading batch dimension, and a mesh is refused
-(NotImplementedError) until the multi-card slice (ROADMAP queue 1).
+shard_mapped over a ("dp", "sp") device mesh. The port keeps the stream
+axis as a leading batch dimension and runs a mesh in one process with
+explicit devices (parallel/mesh.py): each build function splits its
+global inputs by the twin's partition specs, moves each shard to its
+device, launches every shard's work before any reduction, sums partials
+in fixed shard order on shard 0's device, and gathers global outputs to
+the mesh's first device. ``mesh=None`` runs everything on the inputs' device.
 
 - :func:`tracking_core`: motion-only GN tracking of B streams at once (the
-  twin's ``_tracking_core`` with ``sp_axis=None`` under vmap), a fixed trip
-  count with no host sync;
-- :func:`build_multistream_step`: that core behind the twin's builder;
+  twin's ``_tracking_core``), a fixed trip count with no host sync; with
+  the observation axis sharded over "sp", each iteration sums the shards'
+  partial 6x6 normal equations (the twin's psum);
+- :func:`build_multistream_step`: that core behind the twin's build function,
+  streams over "dp", observations over "sp";
+- :func:`build_sharded_ba`: the DWO bundle-adjustment solve with its
+  observation axis sharded over a mesh axis (models.ba_solver's
+  ``sp_axis``);
 - :func:`build_multistream_frontend`: the full per-frame frontend step over
-  B streams. On a CUDA device the disparity of all B streams comes from ONE
-  call of the batched block-matching kernels; each stream's step then runs
-  on that external disparity. The per-stream stages run as a loop over the
+  B streams, the B / dp streams of each "dp" shard on that shard's device.
+  On a CUDA device the disparity of a shard's streams comes from ONE call
+  of the batched block-matching kernels; each stream's step then runs on
+  that external disparity. The per-stream stages run as a loop over the
   streams: vmap's semantics are independent streams, and a loop keeps them
-  exactly.
-
-- :func:`build_multistream_mono`: the per-frame MONOCULAR step
+  exactly;
+- :func:`build_multistream_mono`: the per-frame monocular step
   (``models.mono_step``) over B streams, each with its own pose / point /
-  Lambda tables; no stereo stage. The per-stream steps run as a loop.
-
-Not ported yet: ``make_mesh``, ``shard_stream_batch`` and
-``build_sharded_ba`` (the multi-card slice).
+  Lambda tables, sharded over "dp"; no stereo stage;
+- :func:`make_mesh` and :func:`shard_stream_batch`.
 """
 
 from __future__ import annotations
@@ -40,15 +47,14 @@ from scavislam_tpu_torch.ops.image import binomial3
 from scavislam_tpu_torch.ops.stereo_bm import (
     block_matching_disparity_bm_batched,
 )
+from scavislam_tpu_torch.parallel.mesh import (
+    gather,
+    make_mesh,  # noqa: F401 (the twin defines make_mesh in this module)
+    split,
+    to_device,
+)
 
 STEREO_ROUTES = ("kernel", "twin")
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (multi-card streams, sharded BA) is not ported "
-            "yet: ROADMAP queue 1, multistream; pass mesh=None for one card")
 
 
 def stack_streams(items):
@@ -100,42 +106,144 @@ def _normal_eq(cam_params, R, t, xyz_w, obs_uvu, weights, valid):
     return H, b, torch.sum(w * s, dim=-1)
 
 
+def _gn_update(R, t, H, b):
+    """One damped GN step from summed normal equations: Cholesky on the
+    device (a failed factorization or a non-finite step gives a zero step,
+    the twin's guard), then left-multiply exp(x)."""
+    eye6 = torch.eye(6, dtype=R.dtype, device=R.device)
+    Hd = H + 1e-2 * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
+        + 1e-9 * eye6
+    L, info = torch.linalg.cholesky_ex(Hd)
+    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    ok = (info == 0)[:, None] & torch.isfinite(x)
+    x = torch.where(ok, x, torch.zeros_like(x))
+    T = SE3.exp(x) @ SE3(R, t)
+    return T.R, T.t
+
+
+def _sharded_tracking(cam_params, rows, iters, psum):
+    """GN tracking over a grid of shards: rows[i][j] = (R, t, xyz_w,
+    obs_uvu, weights, valid) of stream group i and observation slice j,
+    each on its device. Every iteration builds all shards' partial normal
+    equations, then sums each row over its slices (`psum(parts, i)`, one
+    sum per slice) and updates every slice's copy of the pose. Returns
+    [(R, t, chi2)] per row, from slice 0."""
+    state = [[sh[:2] for sh in row] for row in rows]
+    chi = [None] * len(rows)
+    for _ in range(iters):
+        parts = [[_normal_eq(cam_params, *state[i][j], *sh[2:])
+                  for j, sh in enumerate(row)] for i, row in enumerate(rows)]
+        for i in range(len(rows)):
+            sums = psum(parts[i], i)
+            chi[i] = sums[0][2]
+            state[i] = [_gn_update(*state[i][j], H, b)
+                        for j, (H, b, _) in enumerate(sums)]
+    return [(*state[i][0], chi[i]) for i in range(len(rows))]
+
+
 def tracking_core(cam_params, R, t, xyz_w, obs_uvu, weights, valid,
                   iters: int = 5):
     """Motion-only GN tracking of B streams, `iters` fixed iterations.
 
     R (B, 3, 3), t (B, 3), xyz_w / obs_uvu (B, N, 3), weights / valid
     (B, N). Each iteration solves the damped (B, 6, 6) systems by Cholesky
-    on the device (a failed factorization or a non-finite step gives a zero
-    step, the twin's guard) and left-multiplies exp(x). Returns (R, t,
-    chi2 of the last iteration's linearization point)."""
-    chi = None
-    eye6 = torch.eye(6, dtype=R.dtype, device=R.device)
-    for _ in range(iters):
-        H, b, chi = _normal_eq(cam_params, R, t, xyz_w, obs_uvu, weights,
-                               valid)
-        Hd = H + 1e-2 * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
-            + 1e-9 * eye6
-        L, info = torch.linalg.cholesky_ex(Hd)
-        x = torch.cholesky_solve(b[..., None], L)[..., 0]
-        ok = (info == 0)[:, None] & torch.isfinite(x)
-        x = torch.where(ok, x, torch.zeros_like(x))
-        T = SE3.exp(x) @ SE3(R, t)
-        R, t = T.R, T.t
-    return R, t, chi
+    on the device and left-multiplies exp(x). Returns (R, t, chi2 of the
+    last iteration's linearization point)."""
+    (out,) = _sharded_tracking(
+        cam_params, [[(R, t, xyz_w, obs_uvu, weights, valid)]], iters,
+        lambda parts, _i: parts)
+    return out
 
 
 def build_multistream_step(mesh, cam_params, iters: int = 5):
     """The batched tracking core as a step over stream batches:
     step(R (B,3,3), t (B,3), xyz_w (B,N,3), obs_uvu (B,N,3), weights (B,N),
-    valid (B,N)) -> (R, t, chi2 (B,)). `mesh` must be None (one card)."""
-    _refuse_mesh(mesh)
+    valid (B,N)) -> (R, t, chi2 (B,)), global shapes in and out.
+
+    With a mesh the twin's specs hold: R and t split over "dp", the
+    observation arrays over ("dp", "sp"); each "dp" row sums its "sp"
+    slices' normal equations every iteration. Outputs on the mesh's first
+    device."""
+    if mesh is None:
+        def step(R, t, xyz_w, obs_uvu, weights, valid):
+            return tracking_core(cam_params, R, t, xyz_w, obs_uvu, weights,
+                                 valid, iters)
+        return step
+
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    grid = mesh.devices
 
     def step(R, t, xyz_w, obs_uvu, weights, valid):
-        return tracking_core(cam_params, R, t, xyz_w, obs_uvu, weights,
-                             valid, iters)
+        poses = split((R, t), dp, lambda i: grid[i, 0])
+        obs = split((xyz_w, obs_uvu, weights, valid), dp,
+                    lambda i: grid[i, 0])
+        rows = []
+        for i in range(dp):
+            slices = split(obs[i], sp, lambda j, i=i: grid[i, j], dim=1)
+            rows.append([(*to_device(poses[i], grid[i, j]), *slices[j])
+                         for j in range(sp)])
+        sp_axis = mesh.axis("sp")
+        out = _sharded_tracking(
+            cam_params, rows, iters,
+            lambda parts, i: sp_axis.psum(parts, list(grid[i, :])))
+        return gather(out, mesh.first)
 
     return step
+
+
+def shard_stream_batch(mesh, arrays_specs):
+    """The twin places each array by a PartitionSpec before a step. The
+    port's build functions take global arrays and place the shards
+    themselves, so this checks that every dimension named in a spec (a
+    tuple of "dp" / "sp" / None per dimension) divides over its axis, and
+    returns the arrays on the mesh's first device."""
+    out = []
+    for arr, spec in arrays_specs:
+        arr = torch.as_tensor(arr)
+        for dim, ax in enumerate(spec):
+            if ax is not None and arr.shape[dim] % mesh.shape[ax]:
+                raise ValueError(f"dim {dim} of size {arr.shape[dim]} does "
+                                 f"not split over {ax}={mesh.shape[ax]}")
+        out.append(arr.to(mesh.first))
+    return out
+
+
+def build_sharded_ba(mesh, cam_params, iters: int = 2, huber: float = 3.0,
+                     axis: str = "sp"):
+    """The DWO bundle-adjustment solve with the OBSERVATION axis sharded
+    over the mesh's `axis`: each shard builds the normal equations of its
+    observation slice (edges on shard 0 only), the shards' partials are
+    summed on shard 0's device, and the LM runs on the summed system
+    there. Pose / point / edge tables are replicated. Returns step(prob)
+    -> (R, t, psi, chi2_final) on the mesh's first device."""
+    from scavislam_tpu_torch.models.ba_solver import solve_ba
+
+    group = mesh.axis(axis)
+
+    def step(prob):
+        R, t, psi, stats = solve_ba(cam_params, prob, iters=iters,
+                                    huber=huber, sp_axis=group)
+        return R, t, psi, stats.chi2_final
+
+    return step
+
+
+def _over_dp(mesh, step):
+    """`step` over a stream batch, or with a mesh: the batch split into
+    B / dp streams per "dp" shard (every argument's leading axis; host
+    lists are sliced), each shard's step on its device, the outputs
+    gathered to the mesh's first device."""
+    if mesh is None:
+        return step
+    dp = mesh.shape["dp"]
+    devs = mesh.axis("dp").devices
+
+    def sharded(*args):
+        shards = [split(a, dp, devs.__getitem__) for a in args]
+        outs = [step(*(sh[i] for sh in shards)) for i in range(dp)]
+        return gather(outs, mesh.first)
+
+    return sharded
 
 
 def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
@@ -151,17 +259,19 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
     Stereo routes (`stereo`; None picks by the frames' device):
     - "kernel" (default on a CUDA device): uint8 -> f32, the 3x3 binomial
       sensor-noise prefilter per stream, then ONE batched block-matching
-      call for all B streams; each stream's step runs on that external
-      disparity, so it computes what a single-stream step computes at
-      stereo method 2. (The twin hands the RAW frames to its batched TPU
-      kernel, skipping the prefilter its single-stream step applies; the
-      port does not copy that.) On a CPU tensor the batched kernel's plain
-      version runs instead.
+      call for the streams of a shard; each stream's step runs on that
+      external disparity, so it computes what a single-stream step
+      computes at stereo method 2. (The twin hands the RAW frames to its
+      batched TPU kernel, skipping the prefilter its single-stream step
+      applies; the port does not copy that.) On a CPU tensor the batched
+      kernel's plain version runs instead.
     - "twin" (default on the CPU): each stream's step at stereo method 1,
       the cost-volume twin — what the JAX package runs on the CPU.
 
-    `mesh` must be None (one card)."""
-    _refuse_mesh(mesh)
+    With a mesh, every input is split over "dp" (the twin's P("dp")): each
+    shard runs its B / dp streams on its device, with one batched
+    block-matching call per shard, and the outputs are gathered to the
+    mesh's first device."""
     if stereo is not None and stereo not in STEREO_ROUTES:
         raise ValueError(f"stereo {stereo!r} not in {STEREO_ROUTES}")
     subs = tuple(dense_subs) if dense_subs is not None else DENSE_SUBS
@@ -191,7 +301,7 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
         ]
         return stack_streams(outs)
 
-    return step
+    return _over_dp(mesh, step)
 
 
 def build_multistream_mono(mesh, cam_params, cam_statics, levels=3,
@@ -201,10 +311,9 @@ def build_multistream_mono(mesh, cam_params, cam_statics, levels=3,
     Returns step(imgs (B, H, W), R (B, 3, 3), t (B, 3), ak (B,), poses,
     points (tables with a leading B axis), Lam (B, P, 3, 3), cand (B, C),
     conv_thr (B,), prior_w (B,)) -> MonoStepOut with a leading stream axis
-    on every leaf. `mesh` must be None (one card)."""
+    on every leaf. With a mesh, every input is split over "dp" and the
+    outputs gathered to the mesh's first device."""
     from scavislam_tpu_torch.models.mono_step import mono_step
-
-    _refuse_mesh(mesh)
 
     def step(imgs, R, t, ak, poses, points, Lam, cand, conv, pw):
         outs = [
@@ -215,4 +324,4 @@ def build_multistream_mono(mesh, cam_params, cam_statics, levels=3,
         ]
         return stack_streams(outs)
 
-    return step
+    return _over_dp(mesh, step)

@@ -1,5 +1,5 @@
 """StreamPool: N live visual-odometry streams through ONE batched step per
-tick (port of scavislam_tpu.parallel.stream_pool, one-device case).
+tick (port of scavislam_tpu.parallel.stream_pool).
 
 N independent camera streams, each with its own keyframe map, covisibility
 graph, candidate set and trajectory, share the batched frontend step
@@ -18,6 +18,11 @@ Division of labour per tick (B streams, one frame each):
           per-stream keyframe policy on each row; a stream that decides a
           keyframe dispatches its own spawn step against its OWN tables,
           and the batched tables are restacked at the next tick.
+
+With a mesh (parallel/mesh.py) the batched step splits the B streams over
+the mesh's "dp" axis: each shard's B / dp streams run on its device, with
+one batched block-matching call per shard, and the outputs come back to the
+mesh's first device, where the pool's state lives.
 
 Each stream's host state is a full StereoFrontend: policy, spawn, epoch
 guard, covisibility and id bookkeeping are the same code as its pipelined
@@ -44,7 +49,6 @@ from scavislam_tpu_torch.models.frontend import (
 )
 from scavislam_tpu_torch.models.frontend_step import DENSE_SUBS_BATCHED
 from scavislam_tpu_torch.parallel.multistream import (
-    _refuse_mesh,
     build_multistream_frontend,
     stack_streams,
 )
@@ -100,17 +104,23 @@ class StreamPool:
     Keyframe spawning, candidate matching, switch policy and the epoch guard
     run per stream (each stream owns a StereoFrontend); the per-frame
     compute and the host<->device traffic are batched: one frame upload,
-    one step, one packed fetch per tick for ALL streams. `mesh` must be
-    None (one card)."""
+    one step, one packed fetch per tick for ALL streams. With a `mesh`,
+    the streams are split over its "dp" axis and the pool runs on the
+    mesh's first device (`device` is then unused)."""
 
     def __init__(self, cam: StereoCamera, cfg: Config = None,
                  n_streams: int = 8, mesh=None, pipeline_depth: int = 2,
                  device=None):
-        _refuse_mesh(mesh)
         self.cfg = cfg or Config()
         self.B = int(n_streams)
         self.mesh = mesh
-        self.device = resolve_device(device)
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            if self.B % dp:
+                raise ValueError(
+                    f"n_streams={n_streams} not divisible by mesh dp={dp}")
+        self.device = (mesh.first if mesh is not None
+                       else resolve_device(device))
         self.fes = [StereoFrontend(cam, self.cfg, device=self.device)
                     for _ in range(self.B)]
         # pool streams track at the reference's own CPU density (every 4th

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions, and the port's paths on the card (the backend's solve,
 the place recognizer's describe and geometric check, threaded SlamSystem
-runs, BP and CSBP stereo) against the CPU. Every test here needs a CUDA
+runs, BP and CSBP stereo, k-means) against the CPU; a debug view's one
+download; the sharded solve over the card listed twice. Every test here needs a CUDA
 card and skips without one.
 
 This file imports no JAX (the machine with the card has none), so on a card:
@@ -634,3 +635,81 @@ def test_mono_relocalize_restores_tables_after_failed_confirm(cuda_device):
     np.testing.assert_array_equal(fe._R_cw, pose0[0])
     np.testing.assert_array_equal(fe._t_cw, pose0[1])
     assert fe.actkey_id == pose0[2]
+
+
+@pytest.mark.cuda
+def test_debug_render_downloads_once_on_card(cuda_device):
+    # every debug view of a 512x384 frame is computed on the card and
+    # downloaded once: one synchronizing call under sync debug mode "warn"
+    import warnings
+
+    from scavislam_tpu_torch.apps.visualize import (
+        DEBUG_MODES,
+        render_debug_image,
+    )
+    cfg = Config()
+    cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
+                              (cfg.cam.width, cfg.cam.height),
+                              cfg.cam.baseline)
+    seq = SyntheticSequence(cam, n_frames=3, step=0.02, device=cuda_device)
+    fe = StereoFrontend(cam, cfg, device=cuda_device)
+    fe.process_first_frame(seq.frame(0))
+    for i in (1, 2):
+        assert fe.process_frame(seq.frame(i))[0]
+    torch.cuda.synchronize()
+    for mode in range(len(DEBUG_MODES)):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                img = render_debug_image(mode, 0, fe)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, (DEBUG_MODES[mode], [str(w.message)
+                                                     for w in caught])
+        assert img.shape == (384, 512, 3)
+
+
+@pytest.mark.cuda
+def test_sharded_ba_on_card_matches_solve_ba(cuda_device):
+    # build_sharded_ba over the card listed twice against solve_ba on the
+    # card: the shards' partial systems sum to the whole, within 1e-5
+    from scavislam_tpu_torch.models.ba_solver import solve_ba
+    from scavislam_tpu_torch.parallel.multistream import (
+        build_sharded_ba,
+        make_mesh,
+    )
+    cam_params = (CAM.focal, CAM.pp[0], CAM.pp[1], CAM.baseline)
+    prob = _ba_problem(cuda_device)
+    R1, t1, psi1, st = solve_ba(cam_params, prob, iters=2)
+    mesh = make_mesh(2, dp=1, devices=[cuda_device] * 2)
+    R2, t2, psi2, chi2 = build_sharded_ba(mesh, cam_params, iters=2)(prob)
+    for a, b in ((R2, R1), (t2, t1), (psi2, psi1)):
+        assert a.device == cuda_device
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-5)
+    assert abs(float(chi2) - float(st.chi2_final)) <= 1e-5 * float(
+        st.chi2_final)
+
+
+@pytest.mark.cuda
+def test_train_vocabulary_on_card_matches_cpu(cuda_device):
+    # Lloyd's k-means on the card and on the CPU from the same initial
+    # centres: the vocabularies within 1e-4. The descriptors lie in 64 tight
+    # clusters, so that no assignment is a near-tie that the two devices'
+    # summation orders could break differently
+    from scavislam_tpu_torch.models.placerec import train_vocabulary
+    rng = np.random.RandomState(5)
+    c = rng.randn(64, 128)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    d = (c[rng.randint(0, 64, 6000)] + 0.05 * rng.randn(6000, 128))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    init = d[rng.choice(len(d), 64, replace=False)]
+    v_cpu = train_vocabulary(d, k=64, iters=10, init_centers=init,
+                             device="cpu")
+    v_card = train_vocabulary(d, k=64, iters=10, init_centers=init,
+                              device=cuda_device)
+    np.testing.assert_allclose(v_card, v_cpu, atol=1e-4)
+    np.testing.assert_allclose(np.linalg.norm(v_card, axis=1), 1.0,
+                               atol=1e-4)

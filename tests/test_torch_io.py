@@ -13,12 +13,7 @@ import pytest
 import torch
 
 from scavislam_tpu.io import filegrabber as jfg
-from scavislam_tpu_torch.apps.dump_sequence import (
-    encode_png,
-    record,
-    record_live,
-    write_png,
-)
+from scavislam_tpu_torch.apps.dump_sequence import record, record_live
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.io import filegrabber as tfg
 from scavislam_tpu_torch.io.filegrabber import (
@@ -31,6 +26,7 @@ from scavislam_tpu_torch.io.filegrabber import (
 from scavislam_tpu_torch.io.rgbd_grabber import RgbdGrabber, directory_source
 from scavislam_tpu_torch.io.synthetic import SyntheticSequence
 from scavislam_tpu_torch.utils.config import load_config
+from scavislam_tpu_torch.utils.png import encode_png, write_png
 
 # the 256x192 camera of tests/test_full_system.py and
 # tests/test_newcollege_ingest.py

@@ -16,6 +16,7 @@ Shared states go from the JAX frontend to the port's through
 import copy
 import dataclasses
 import functools
+import json
 from concurrent.futures import Future
 
 import jax
@@ -764,15 +765,29 @@ class TestMonoVo:
         assert out["ate_sim3_m"] < 0.05
         rows = np.loadtxt(tmp_path / "traj.txt")
         assert rows.shape == (10, 8)
-        # the viewers are not ported: their flags exit with code 2, naming
-        # the module each needs
-        for flag, module in (("--viz", "apps/visualize.py"),
-                             ("--viz-html", "apps/map3d.py")):
-            with pytest.raises(SystemExit) as e:
-                mono_vo.main([str(cfg), "--synthetic", "10", flag,
-                              str(tmp_path / "x"), "--device", "cpu"])
-            assert e.value.code == 2
-            assert module in capsys.readouterr().err
+        # the viewers: --viz, --viz-html and --watch each write their
+        # artifacts
+        from scavislam_tpu_torch.utils.png import decode_png
+
+        watch = tmp_path / "watch"
+        out = mono_vo.main([
+            str(cfg), "--synthetic", "6", "--device", "cpu",
+            "--viz", str(tmp_path / "map.png"),
+            "--viz-html", str(tmp_path / "map3d.html"),
+            "--watch", str(watch), "--watch-period", "0"])
+        assert out["frames"] == 6
+        assert decode_png((tmp_path / "map.png").read_bytes()).shape == (
+            900, 900, 3)
+        html = (tmp_path / "map3d.html").read_text()
+        scene = json.loads(html.split("const SCENE = ", 1)[1]
+                           .split(";\n", 1)[0])
+        assert len(scene["kf_ids"]) == out["keyframes"]
+        assert len(scene["points"]) > 0  # the converged points
+        status = json.loads((watch / "status.json").read_text())
+        assert status == {"frame": 5, "keyframes": out["keyframes"],
+                          "lost": False, "relocalizations": 0}
+        assert (watch / "map3d.html").exists()
+        assert "watch:" not in capsys.readouterr().err
 
     def test_dataset_replay_cli(self, tmp_path):
         from scavislam_tpu_torch.apps import dump_sequence, mono_vo
@@ -857,6 +872,5 @@ def test_mono_vo_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mono_vo.main(["--synthetic", "3"])
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         mono_vo.main(["--synthetic", "3", "--watch", str(tmp_path)])
-    assert e.value.code == 2

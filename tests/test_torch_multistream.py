@@ -38,6 +38,7 @@ from scavislam_tpu_torch.ops import stereo_bm
 from scavislam_tpu_torch.parallel.multistream import (
     build_multistream_frontend,
     build_multistream_step,
+    make_mesh,
     stack_streams,
     tracking_core,
 )
@@ -219,16 +220,51 @@ def test_kernel_route_matches_single_stream_method2(batch):
 
 
 def test_mesh_and_bad_route_raise():
+    """A bad stereo route raises; so does a mesh whose dp does not divide
+    the streams (the twin's ValueError in StreamPool, and the split of a
+    step's stream axis)."""
     cam_params, cam_statics = _cams()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_multistream_frontend(object(), cam_params, cam_statics)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_multistream_step(object(), CAM_PARAMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        StreamPool(T_CAM, n_streams=2, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="stereo"):
         build_multistream_frontend(None, cam_params, cam_statics,
                                    stereo="bp")
+    mesh = make_mesh(2, dp=2, devices=[CPU] * 2)
+    with pytest.raises(ValueError, match="not divisible by mesh dp=2"):
+        StreamPool(T_CAM, n_streams=3, mesh=mesh)
+    p = _problem(B=3, N=8)
+    step = build_multistream_step(mesh, CAM_PARAMS)
+    with pytest.raises(ValueError, match="does not split"):
+        step(*(torch.as_tensor(p[k]) for k in
+               ("R", "t", "xyz", "obs", "w", "v")))
+
+
+def test_kernel_route_over_a_dp_mesh(batch, monkeypatch):
+    """build_multistream_frontend over a dp = 2 mesh of CPU devices: one
+    batched block-matching call per shard (one stream each), and the
+    gathered output equal to the unsharded step's."""
+    from scavislam_tpu_torch.parallel import multistream
+
+    _, tb = batch
+    calls = []
+    bm = multistream.block_matching_disparity_bm_batched
+
+    def counted(left, right, **kw):
+        calls.append(left.shape[0])
+        return bm(left, right, **kw)
+
+    cam_params, cam_statics = _cams()
+    ref = _run(tb, "kernel")
+    step = build_multistream_frontend(
+        make_mesh(2, dp=2, devices=[CPU] * 2), cam_params, cam_statics,
+        levels=3, num_disp=64, max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED,
+        dense_sample="qpack", stereo="kernel")
+    monkeypatch.setattr(multistream, "block_matching_disparity_bm_batched",
+                        counted)
+    out = step(tb["frames"], *tb["dense"], tb["R"], tb["t"], tb["ak"],
+               tb["poses"], tb["points"], tb["cand"])
+    assert calls == [1, 1]
+    assert torch.equal(out.disp, ref.disp)
+    assert torch.equal(out.packed, ref.packed)
+    assert torch.equal(out.clouds[0], ref.clouds[0])
 
 
 def test_multistream_mono_matches_per_stream():
@@ -284,6 +320,20 @@ def test_multistream_mono_matches_per_stream():
                                    ref.packed.numpy(), atol=1e-5)
         assert torch.equal(out.gate[s], ref.gate)
         assert torch.equal(out.points.psi[s], ref.points.psi)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        build_multistream_mono(object(), fes[0]._cam_params,
-                               fes[0]._cam_statics)
+    # over a dp = 2 mesh of CPU devices: one stream per shard, the same
+    # result
+    step_m = build_multistream_mono(make_mesh(2, dp=2, devices=[CPU] * 2),
+                                    fes[0]._cam_params, fes[0]._cam_statics,
+                                    levels=3)
+    out_m = step_m(
+        torch.stack(imgs),
+        torch.stack([torch.as_tensor(fe._R_cw) for fe in fes]),
+        torch.stack([torch.as_tensor(fe._t_cw) for fe in fes]),
+        torch.tensor([max(fe.actkey_id, 0) for fe in fes]),
+        stack_streams([fe.poses for fe in fes]),
+        stack_streams([fe.points for fe in fes]),
+        torch.stack([fe.Lam for fe in fes]), torch.stack(cands),
+        torch.full((B,), fes[0].conv_q_info),
+        torch.full((B,), fes[0].prior_weight))
+    assert torch.equal(out_m.packed, out.packed)
+    assert torch.equal(out_m.Lam, out.Lam)

@@ -4,11 +4,12 @@ SlamSystem on the same files (held as tests/test_torch_slam_system.py holds
 the systems: the same keyframes, ATE within max(1% of JAX's, 1e-4 m)), the
 pipelined CLI with the grabber's prefetch, tests/test_full_system.py's
 RGB-D replay through the port's recorder and grabber, the synthetic and
-multistream paths, the checkpoint and export flags, and the flags whose
-modules are not ported yet."""
+multistream paths (on one device and over a dp mesh), the checkpoint and
+export flags, and the viewer flags."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -177,11 +178,16 @@ def test_cli_streams(tree, tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["streams"] == 2
 
 
-def test_cli_streams_mesh_refused(tree):
+def test_cli_streams_mesh(tree, tmp_path):
+    """--streams-mesh 2 on the CPU: the two streams split over a dp = 2
+    mesh of the CPU device, reported as the twin reports it."""
     _root, cfg, _gt = tree
-    with pytest.raises(NotImplementedError, match="mesh"):
-        stereo_slam.main([cfg, "--streams", "2", "--streams-mesh", "2",
-                          "--synthetic", "3", "--device", CPU])
+    summary = stereo_slam.main([cfg, "--streams", "2", "--streams-mesh", "2",
+                                "--synthetic", "3", "--device", CPU,
+                                "--out", str(tmp_path / "traj.txt")])
+    assert summary["mesh"] == {"dp": 2, "sp": 1}
+    assert [s["alive"] for s in summary["per_stream"]] == [True, True]
+    assert [s["frames"] for s in summary["per_stream"]] == [3, 3]
 
 
 def test_cli_defaults_to_the_card(tree, monkeypatch):
@@ -190,14 +196,58 @@ def test_cli_defaults_to_the_card(tree, monkeypatch):
         stereo_slam.main([tree[1]])
 
 
-@pytest.mark.parametrize("flag,module", sorted(stereo_slam._UNPORTED.items()))
-def test_unported_flag_names_its_module(tree, capsys, flag, module):
-    with pytest.raises(SystemExit) as exc:
-        stereo_slam.main([tree[1], "--" + flag.replace("_", "-"), "x.out",
-                          "--device", CPU])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert module in err and "not ported yet" in err
+@pytest.fixture(scope="module")
+def viewer_run(tree, tmp_path_factory):
+    """The CLI over the tree's first 6 frames with every viewer flag; the
+    watch directory holds a tunables.cfg before the run (debug_mode = 3),
+    which the running system must read."""
+    _root, cfg, _gt = tree
+    tmp = tmp_path_factory.mktemp("viewers")
+    watch = tmp / "watch"
+    watch.mkdir()
+    (watch / "tunables.cfg").write_text("debug_mode = 3\n")
+    paths = {"viz": tmp / "map.png", "viz_html": tmp / "map3d.html",
+             "timing_plot": tmp / "timing.png",
+             "keyframe_view": tmp / "kf.png"}
+    args = [cfg, "--max-frames", "6", "--debug-mode", "6", "--debug-every",
+            "2", "--debug-out", str(tmp / "debug"), "--watch", str(watch),
+            "--watch-period", "0"]
+    for flag, p in paths.items():
+        args += ["--" + flag.replace("_", "-"), str(p)]
+    summary, _traj = _cli(tmp, *args)
+    return tmp, paths, summary
+
+
+@pytest.mark.parametrize("flag", ["debug_mode", "keyframe_view", "timing_plot",
+                                  "viz", "viz_html", "watch"])
+def test_viewer_flag_writes_its_artifact(viewer_run, flag):
+    """Each viewer flag (refused until apps/visualize.py, map3d.py and
+    watch.py were ported) writes its artifact."""
+    from scavislam_tpu_torch.utils.png import decode_png
+
+    tmp, paths, summary = viewer_run
+    assert summary["frames_processed"] == 6
+    if flag == "debug_mode":
+        names = sorted(os.listdir(tmp / "debug"))
+        assert names == [f"debug_{n:06d}.png" for n in (0, 2, 4)]
+        img = decode_png((tmp / "debug" / names[-1]).read_bytes())
+        assert img.shape == (192, 256, 3) and img.max() > 0
+    elif flag == "watch":
+        for name in ("map.png", "map3d.html", "timing.png", "debug.png",
+                     "status.json"):
+            assert (tmp / "watch" / name).exists(), name
+        status = json.loads((tmp / "watch" / "status.json").read_text())
+        assert status["frame"] == 5 and status["debug_mode"] == 3
+    elif flag == "viz_html":
+        html = paths[flag].read_text()
+        scene = json.loads(html.split("const SCENE = ", 1)[1]
+                           .split(";\n", 1)[0])
+        assert len(scene["kf_ids"]) == summary["keyframes"] >= 1
+    else:
+        img = decode_png(paths[flag].read_bytes())
+        assert img.ndim == 3 and img.shape[2] == 3
+        if flag == "keyframe_view":
+            assert img.shape == (192, 256, 3)
 
 
 def _small_cfg():
