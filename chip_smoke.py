@@ -187,6 +187,28 @@ non-zero before the result line):
    of phase 8's, a solve adopted without raising chi2. Copies between
    cards are not measured: the machine has one card.
 
+15. parity — the port on the card against the port on the CPU, in one
+   process, on frames rendered once on the CPU by the port's renderer and
+   quantized to uint8 as benchmarks/tpu_cpu_parity.py does (the card run
+   uploads them), with the place recognizer's RANSAC draws from one CPU
+   generator seeded 42 on both devices (CpuDraws). Every run unthreaded,
+   synchronous, loop closure on and pr_lossless; the CPU runs on a worker
+   thread beside the card's. (a) phase 9's spin (256x192, 90 frames) at
+   stereo method 2 (the kernel on the card, its plain version on the
+   CPU), a second card run, and method 1 on both; (b) phase 8's wander at
+   512x384 with Config(), cut to its first 40 frames for the script's
+   time. Each pair must track every frame, with ATE within 1% relative
+   (the north star) and the same keyframes and solves, and on the spin
+   the same METRIC and
+   APPEARANCE edges and closed loops; the two card runs are held to the
+   same bars. Printed beside them, unchecked: the RMSE between the two
+   trajectories (traj_rmse_m), the first frame whose positions lie more
+   than 1e-4 m apart, bit-equality, each run's wall time and the recorded
+   port-CPU-to-JAX-CPU link. One kernel launch per frame in each card run
+   at method 2, none elsewhere. Reported only (gated on tracking every
+   frame): MonoFrontend on config 6's forward arc cut to 40 frames, card
+   against CPU, keyframes and Sim3-aligned ATE.
+
 After the phases, torch.profiler (last, so that its tracing cannot slow the
 timed phases): the device time of each kernel of one single-image
 block-matching call, and the launches and summed kernel time per BP, per
@@ -307,12 +329,6 @@ def _ate(est, gt):
         errs.append(Te.R @ (-Rg.T @ tg) + Te.t)  # translation of Te @ Tg^-1
     errs = np.stack(errs)
     return float(np.sqrt((errs ** 2).sum(axis=1).mean()))
-
-
-# The JAX package's unthreaded SlamSystem on these 80 frames at 512x384, run
-# on a CPU: printed beside the card's numbers, unchecked. Not measured: the
-# parity runs on a CPU are the 256x192 ones of tests/test_torch_slam_system.py.
-JAX_CPU_REFERENCE = "not measured"
 
 
 def _run_system(cam, cfg, dev, frames, threaded, pipelined,
@@ -1936,6 +1952,285 @@ def _phase_mesh(cam, cfg, dev, frames, graph, sys_u, ticks, pool_traj):
     return launches_b
 
 
+PARITY_REL_TOL = 0.01  # the north star: ATE within 1% relative
+PARITY_POS_M = 1e-4  # positions further apart than this: the runs diverged
+SPIN_COUNTS = ("keyframes", "solves", "metric_edges", "appearance_edges",
+               "closed_loops")
+WANDER_COUNTS = ("keyframes", "solves")
+PARITY_MONO_FRAMES = 40  # config 6's forward arc, cut from 120
+# phase 8's wander cut from 80 frames to 40 for the script's 1,200 s: with
+# 80, run after each other, a whole run took 698-1,086 s on an NVIDIA H100
+# 80GB HBM3 (700 W) machine, its CPU runs the slowest part
+PARITY_WANDER_FRAMES = 40
+# The CPU link: the port against the JAX package, both on a CPU, on the
+# spin read from one PNM tree by both (tests/test_torch_system_parity.py,
+# slow): the port's ATE relative difference as that test measured it.
+JAX_LINK = {"spin method 2": "0.52% (tests/test_torch_system_parity.py, "
+            "on a CPU)",
+            "spin method 1": "0.67% (tests/test_torch_system_parity.py, "
+            "on a CPU)",
+            "wander 512x384": "not measured (the JAX package is not run "
+            "at this size on a CPU)"}
+
+
+class CpuDraws:
+    """The place recognizer's RANSAC draws from one CPU generator seeded 42,
+    moved to `device`. Installed as `place_recognizer.hypotheses` in a run
+    on the card and in one on the CPU, both score the same hypotheses (a
+    card's own generator is Philox, the CPU's MT19937)."""
+
+    def __init__(self, device, seed=42):
+        self.device = torch.device(device)
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def draw(self, n):
+        """The next (NUM_HYPOTHESES, 3) raw draws in [0, n), on the CPU."""
+        from scavislam_tpu_torch.models.placerec import NUM_HYPOTHESES
+        from scavislam_tpu_torch.ops.ransac import draw_hypotheses
+        return draw_hypotheses(n, NUM_HYPOTHESES, self.generator, "cpu")
+
+    def __call__(self, n):
+        return self.draw(n).to(self.device)
+
+
+def parity_frames(cam, n, **seq_kw):
+    """n frames rendered once on the CPU by the port's renderer and
+    quantized as benchmarks/tpu_cpu_parity.py does (clip(x, 0, 1) * 255 +
+    0.5): host uint8 arrays that a run on any device takes (the card's
+    uploads them), with the ground truth."""
+    from scavislam_tpu_torch.io.synthetic import SyntheticSequence
+    seq = SyntheticSequence(cam, n_frames=n, device="cpu", **seq_kw)
+    out = []
+    for i in range(n):
+        f = seq.frame(i)
+        out.append({"frame_id": i, "left": _u8(f["left"]).numpy(),
+                    "right": _u8(f["right"]).numpy(),
+                    "T_cw_gt": f["T_cw_gt"]})
+    return out
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _traj_summary(trajectory, frames, seconds, dev):
+    """The (frame id, pose) pairs of a run as {id: (R, t) float64} and the
+    ATE against the frames' ground truth (SlamSystem's own ate_rmse)."""
+    from scavislam_tpu_torch.core.lie import PoseRT
+    from scavislam_tpu_torch.pipeline.slam_system import ate_rmse
+    gt = {f["frame_id"]: f["T_cw_gt"] for f in frames}
+    traj = {}
+    for fid, T in trajectory:
+        if fid in gt:
+            T = PoseRT.from_any(T)
+            traj[fid] = (np.asarray(T.R, np.float64),
+                         np.asarray(T.t, np.float64))
+    ids = sorted(traj)
+    ate = ate_rmse([(i, PoseRT(*traj[i])) for i in ids],
+                   [gt[i] for i in ids]) if ids else float("inf")
+    return {"device": dev.type, "frames": len(frames), "tracked": len(ids),
+            "trajectory": traj, "ate": ate, "seconds": seconds}
+
+
+def parity_run(cam, cfg, dev, frames, loop_closure=True):
+    """One SlamSystem run over `frames` on `dev`, unthreaded, synchronous
+    and pr_lossless as benchmarks/tpu_cpu_parity.py runs it (every device
+    executes the same order of events), the recognizer drawing CpuDraws.
+    Returns the run's counts, trajectory, ATE and wall seconds."""
+    from scavislam_tpu_torch.models.slam_graph import APPEARANCE, METRIC
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+    dev = torch.device(dev)
+    system = SlamSystem(cam, cfg, threaded=False,
+                        enable_loop_closure=loop_closure, pipelined=False,
+                        pr_lossless=loop_closure, device=dev)
+    if system.place_recognizer is not None:
+        system.place_recognizer.hypotheses = CpuDraws(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        system.process_first_frame(dict(frames[0]))
+        for f in frames[1:]:
+            if not system.process_frame(dict(f)):
+                break
+        system.finish()
+        _sync(dev)
+    finally:
+        system.shutdown()
+    out = _traj_summary(system.trajectory, frames, time.perf_counter() - t0,
+                        dev)
+    g = system.backend.graph
+    types = [e.edge_type for e in g.edges.values()]
+    out.update(keyframes=system.frontend.next_kf, solves=len(g.solve_log),
+               metric_edges=types.count(METRIC),
+               appearance_edges=types.count(APPEARANCE),
+               closed_loops=len(system.closed_loops),
+               counters=dict(sorted(system.backend.counters.items())))
+    return out
+
+
+def parity_compare(a, b, counts):
+    """Run `a` against run `b` on the same frames: the ATE's relative
+    difference (to b's), the RMSE between the two trajectories'
+    translations (benchmarks/tpu_cpu_parity.py's traj_rmse_m), the first
+    frame whose camera positions lie more than PARITY_POS_M apart,
+    whether the trajectories are bit-equal, and the misses of the north
+    star: a run that did not track every frame, an ATE more than
+    PARITY_REL_TOL apart, a count of `counts` that differs."""
+    ta, tb = a["trajectory"], b["trajectory"]
+    common = sorted(set(ta) & set(tb))
+    dt = np.stack([ta[i][1] - tb[i][1] for i in common]) if common else None
+    diverged = next((i for i in common if np.linalg.norm(
+        ta[i][0].T @ ta[i][1] - tb[i][0].T @ tb[i][1]) > PARITY_POS_M), None)
+    rel = abs(a["ate"] - b["ate"]) / max(b["ate"], 1e-12)
+    misses = [f"{r['device']} run tracked {r['tracked']}/{r['frames']}"
+              for r in (a, b) if r["tracked"] != r["frames"]]
+    if not rel <= PARITY_REL_TOL:
+        misses.append(f"ATE {a['ate']:.6f} against {b['ate']:.6f} m: "
+                      f"{100 * rel:.3f}% apart")
+    misses += [f"{k} {a[k]} against {b[k]}" for k in counts if a[k] != b[k]]
+    return {
+        "ate_rel_diff": rel,
+        "traj_rmse_m": (float(np.sqrt((dt ** 2).sum(1).mean()))
+                        if dt is not None else float("inf")),
+        "first_diverged": diverged,
+        "bit_equal": (set(ta) == set(tb) and all(
+            np.array_equal(ta[i][0], tb[i][0])
+            and np.array_equal(ta[i][1], tb[i][1]) for i in common)),
+        "misses": misses,
+    }
+
+
+def _parity_line(name, a, b, cmp, counts, link=None):
+    print(f"parity {name}: {a['device']} {a['tracked']}/{a['frames']} "
+          f"tracked, ATE {a['ate']:.6f} m, {a['seconds']:.1f} s; "
+          f"{b['device']} {b['tracked']}/{b['frames']}, ATE {b['ate']:.6f} "
+          f"m, {b['seconds']:.1f} s; ATE relative difference "
+          f"{100 * cmp['ate_rel_diff']:.4f}% (limit "
+          f"{100 * PARITY_REL_TOL:.0f}%); "
+          + ", ".join(f"{k} {a[k]}/{b[k]}" for k in counts)
+          + f"; traj_rmse_m {cmp['traj_rmse_m']:.3e}, first frame with "
+          f"positions > {PARITY_POS_M:g} m apart {cmp['first_diverged']}, "
+          f"bit-equal {cmp['bit_equal']}"
+          + ("" if link is None else f"; JAX link: port CPU against JAX CPU "
+             f"{link}")
+          + (f"; MISSES {cmp['misses']}" if cmp["misses"] else ""),
+          flush=True)
+
+
+def parity_mono(cam, cfg, dev, frames):
+    """MonoFrontend over `frames` on `dev`, synchronous (it draws no random
+    number: its loop closure lives in mono_vo). Returns the run's
+    keyframes, trajectory, Sim3-aligned ATE and wall seconds."""
+    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    dev = torch.device(dev)
+    fe = MonoFrontend(cam, cfg, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    fe.process_first_frame(dict(frames[0]))
+    for f in frames[1:]:
+        ok, _ = fe.process_frame(dict(f))
+        if not ok:
+            break
+    _sync(dev)
+    out = _traj_summary(fe.trajectory, frames, time.perf_counter() - t0, dev)
+    ids = sorted(out["trajectory"])
+    out["ate"] = _sim3_ate(
+        np.stack([-R.T @ t for R, t in (out["trajectory"][i] for i in ids)]),
+        _centers([frames[i]["T_cw_gt"] for i in ids]))
+    out["keyframes"] = fe.next_kf
+    return out
+
+
+def _phase_parity(cam, cfg, dev):
+    """Phase 15: the port on the card against the port on the CPU, on the
+    same CPU-rendered uint8 frames and the same RANSAC draws (`cam` and
+    `cfg`: phase 8's). The CPU runs go one after another on a worker thread
+    of this process while the card runs go on this one. Returns the
+    single-image kernel launches of its card runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scavislam_tpu_torch.io.synthetic import closed_box
+    from scavislam_tpu_torch.ops import stereo_bm
+    bm = stereo_bm.block_matching_disparity_bm
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cam_s, scfg = _loop_cam_cfg(cfg, 0.25, windows=(3, 8))
+    spin_cfg = {m: dataclasses.replace(scfg, ui=dataclasses.replace(
+        scfg.ui, stereo_method=m)) for m in (2, 1)}
+    spin = parity_frames(cam_s, LOOP_FRAMES, kind="spin",
+                         planes=closed_box(), step=1.0 / (LOOP_FRAMES - 1))
+    wander = parity_frames(cam, PARITY_WANDER_FRAMES, kind="wander",
+                           planes=closed_box(), step=0.06)
+    arc = [{"frame_id": f["frame_id"], "left": f["left"],
+            "T_cw_gt": f["T_cw_gt"]}
+           for f in parity_frames(cam, PARITY_MONO_FRAMES, step=MONO_STEP)]
+    render_s = time.perf_counter() - t_phase
+    launches_before = bm.launches
+    card_launches = 0
+
+    def on_card(fn, rcam, rcfg, frames):
+        """fn on the card, its kernel launches checked: one per frame in a
+        stereo run at method 2, none otherwise."""
+        nonlocal card_launches
+        n0 = bm.launches
+        r = fn(rcam, rcfg, dev, frames)
+        n = bm.launches - n0
+        want = (len(frames) if fn is parity_run
+                and rcfg.ui.stereo_method == 2 else 0)
+        if n != want:
+            _fail(f"parity: {n} kernel launches in a card run, {want} "
+                  "expected")
+        card_launches += n
+        return r
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = {m: pool.submit(parity_run, cam_s, spin_cfg[m], cpu, spin)
+                for m in (2, 1)}
+        host["wander"] = pool.submit(parity_run, cam, cfg, cpu, wander)
+        host["mono"] = pool.submit(parity_mono, cam, cfg, cpu, arc)
+        card = {m: on_card(parity_run, cam_s, spin_cfg[m], spin)
+                for m in (2, 1)}
+        card["again"] = on_card(parity_run, cam_s, spin_cfg[2], spin)
+        card["wander"] = on_card(parity_run, cam, cfg, wander)
+        card["mono"] = on_card(parity_mono, cam, cfg, arc)
+        host = {k: f.result() for k, f in host.items()}
+    if bm.launches - launches_before != card_launches:
+        _fail("parity: a CPU run launched the kernel")
+
+    misses = []
+    for m in (2, 1):
+        cmp = parity_compare(card[m], host[m], SPIN_COUNTS)
+        _parity_line(f"spin method {m} (card/CPU)", card[m], host[m], cmp,
+                     SPIN_COUNTS, JAX_LINK[f"spin method {m}"])
+        misses += [f"spin method {m}: {x}" for x in cmp["misses"]]
+    det = parity_compare(card["again"], card[2], SPIN_COUNTS)
+    _parity_line("spin method 2 (card/card, determinism)", card["again"],
+                 card[2], det, SPIN_COUNTS)
+    misses += [f"card determinism: {x}" for x in det["misses"]]
+    cmp = parity_compare(card["wander"], host["wander"], WANDER_COUNTS)
+    _parity_line(f"wander 512x384, {PARITY_WANDER_FRAMES} of phase 8's "
+                 f"{N_FRAMES} frames (card/CPU)", card["wander"],
+                 host["wander"], cmp, WANDER_COUNTS,
+                 JAX_LINK["wander 512x384"])
+    misses += [f"wander: {x}" for x in cmp["misses"]]
+    mc, mh = card["mono"], host["mono"]
+    mcmp = parity_compare(mc, mh, ("keyframes",))
+    _parity_line(f"mono forward arc {PARITY_MONO_FRAMES} frames (card/CPU, "
+                 "Sim3-aligned ATE; reported, gated on tracking only)", mc,
+                 mh, mcmp, ("keyframes",))
+    if mc["tracked"] != len(arc) or mh["tracked"] != len(arc):
+        misses.append(f"mono: tracked {mc['tracked']} (card) and "
+                      f"{mh['tracked']} (CPU) of {len(arc)}")
+    print(f"parity: phase 15 took {time.perf_counter() - t_phase:.1f} s "
+          f"({render_s:.1f} s rendering on the CPU; the CPU runs beside the "
+          f"card's, so each wall time holds the other's load), kernel "
+          f"launches {card_launches}", flush=True)
+    if misses:
+        _fail(f"parity: {misses}")
+    return card_launches
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
@@ -2235,8 +2530,6 @@ def main():
                         pipelined=False)
     _check_system("system unthreaded sync", sys_u,
                   stereo_bm.block_matching_disparity_bm.launches, 0)
-    print("system: JAX on the CPU for the unthreaded run at this size: "
-          f"{JAX_CPU_REFERENCE}", flush=True)
     _time_solve(sys_t["system"].backend.graph)
     _phase_loop(cfg, dev)
     _phase_relocalize(cfg, dev)
@@ -2262,6 +2555,8 @@ def main():
                                   sys_t["system"].backend.graph, sys_u,
                                   ticks, pool_traj)
         print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+    # -- 15. the card against the CPU on the same frames and draws
+    launches += _phase_parity(cam, cfg, dev)
 
     try:
         dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(

@@ -713,3 +713,108 @@ def test_train_vocabulary_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(v_card, v_cpu, atol=1e-4)
     np.testing.assert_allclose(np.linalg.norm(v_card, axis=1), 1.0,
                                atol=1e-4)
+
+
+# -- the card against the CPU on the same frames (chip_smoke.py phase 15) -- #
+# tests/test_torch_slam_system.py's 12 frames, camera and configuration,
+# the frames rendered once on the CPU and quantized
+# (probes/pose_lm_probe.py, chip_smoke.parity_frames)
+
+
+@pytest.mark.cuda
+def test_frontend_step_on_card_matches_cpu(cuda_device):
+    # one frame step (stereo method 2: the kernel on the card, its plain
+    # version on the CPU) from one shared state, a CPU frontend's after 6
+    # frames loaded into a card and a CPU frontend: the pyramid and the
+    # disparity equal, the match counts, the matched set and the gates
+    # equal, the observations within 1e-3 px, then R, t and T_cak within
+    # 1e-4 (tests/test_torch_frontend.py's bar against JAX)
+    from probes import pose_lm_probe as plp
+    from scavislam_tpu_torch.models.frontend import CAND_CAP
+    frames = plp.frames(7)
+    cfg = plp.config()
+    src = StereoFrontend(plp.CAM, cfg, device="cpu")
+    src.process_first_frame(frames[0])
+    for f in frames[1:6]:
+        assert src.process_frame(f)[0]
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        fe = plp.load_shared_state(StereoFrontend(plp.CAM, cfg, device=dev),
+                                   src, dev)
+        outs.append(fe._run_step(frames[6], fe._collect_candidates()))
+    og, oc = outs
+    for a, b in zip(og.pyr + (og.disp,), oc.pyr + (oc.disp,)):
+        assert torch.equal(a.cpu(), b)
+    pg, pc = og.packed.cpu().numpy(), oc.packed.numpy()
+    C = CAND_CAP
+    assert pc[24] > 100 and pc[25] > 100
+    assert pg[24:26].tolist() == pc[24:26].tolist()
+    np.testing.assert_array_equal(pg[34:34 + 2 * C], pc[34:34 + 2 * C])
+    np.testing.assert_allclose(pg[34 + 2 * C:], pc[34 + 2 * C:], atol=1e-3)
+    np.testing.assert_allclose(pg[0:24], pc[0:24], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_register_packed_on_card_matches_cpu(cuda_device):
+    # the fused two-pass registration (backend._build_register_packed) on
+    # the newest keyframe's snapshot of a 12-frame CPU run, against the
+    # tables: on the card and on the CPU the pass-1 gate count, the gate and
+    # the levels equal, observations within 1e-3 px and the pose within
+    # 1e-4 (tests/test_torch_backend.py's bars against JAX)
+    from probes import pose_lm_probe as plp
+    from scavislam_tpu_torch.models import backend as tbe
+    from scavislam_tpu_torch.models.map_store import PointTable, PoseTable
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+    frames = plp.frames()
+    cfg = plp.config()
+    cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+        cfg.graph, inner_window=2))
+    system = SlamSystem(plp.CAM, cfg, threaded=False,
+                        enable_loop_closure=False, device="cpu")
+    system.process_first_frame(frames[0])
+    for f in frames[1:]:
+        assert system.process_frame(f)
+    system.finish()
+    be = system.backend
+    kf = max(be.keyframe_snapshots)
+    snap = be.keyframe_snapshots[kf]
+    pts, poses = be._last_tables
+    cand = np.flatnonzero(pts.valid.numpy())[:1024]
+    T0 = be.graph.vertices[kf].T
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sn = {"pyr": tuple(x.to(dev) for x in snap["pyr"]),
+              "disp": snap["disp"].to(dev)}
+        _, fut = be._match_and_align_dispatch(
+            sn, T0, cand, PointTable(*(x.to(dev) for x in pts)),
+            PoseTable(*(x.to(dev) for x in poses)))
+        outs.append(np.asarray(fut.result()))
+    pg, pc = outs
+    C = tbe.CAND_CAP
+    assert pg.shape == pc.shape == (1 + 5 * C + 12,)
+    assert pg[0] == pc[0] >= 10
+    np.testing.assert_array_equal(pg[1:1 + C], pc[1:1 + C])
+    np.testing.assert_allclose(pg[1 + C:1 + 4 * C], pc[1 + C:1 + 4 * C],
+                               atol=1e-3)
+    np.testing.assert_array_equal(pg[1 + 4 * C:1 + 5 * C],
+                                  pc[1 + 4 * C:1 + 5 * C])
+    np.testing.assert_allclose(pg[-12:], pc[-12:], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_slam_system_on_card_matches_cpu(cuda_device):
+    # tests/test_torch_slam_system.py's 12 frames, unthreaded with loop
+    # closure on and the RANSAC draws from one CPU generator on both
+    # devices (chip_smoke.parity_run): the same keyframes, solves, edges,
+    # loops and backend counters, every frame tracked, ATE within 1%
+    import chip_smoke
+    from probes import pose_lm_probe as plp
+    frames = plp.frames()
+    before = stereo_bm.block_matching_disparity_bm.launches
+    card = chip_smoke.parity_run(plp.CAM, plp.config(), cuda_device, frames)
+    assert stereo_bm.block_matching_disparity_bm.launches == before + 12
+    host = chip_smoke.parity_run(plp.CAM, plp.config(), "cpu", frames)
+    cmp = chip_smoke.parity_compare(card, host, chip_smoke.SPIN_COUNTS)
+    assert cmp["misses"] == [], cmp
+    assert card["counters"] == host["counters"]
+    assert host["keyframes"] >= 2 and host["solves"] >= 1
