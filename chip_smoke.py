@@ -1,5 +1,6 @@
 """Drive the PyTorch port's paths once on one CUDA card: the synchronous
-and pipelined single-stream frontend, the 8-stream pool, the whole
+and pipelined single-stream frontend (its frame step a CUDA graph
+replay), the 8-stream pool, the whole
 SlamSystem (frontend + backend + place recognition) as the headline
 benchmark configures it, the loop-closure workload and relocalization, the
 disk entry point, the stereo methods, the monocular mode, the viewers, the
@@ -209,11 +210,28 @@ non-zero before the result line):
    frame): MonoFrontend on config 6's forward arc cut to 40 frames, card
    against CPU, keyframes and Sim3-aligned ATE.
 
+16. step graph — the stereo frame step as StereoFrontend runs it on a
+   card, a CUDA graph replay (models/step_graph.StepGraph), at 512x384
+   with Config(). (a) From the state after phase 4's first 12 frames (>= 2
+   keyframes), frame 12's frontend_step arguments: the eager step, then a
+   StepGraph captured on them and replayed once; every output of the
+   replay (packed vector, disparity, next dense state, ...) torch.equal to
+   the eager step's, the block-matching counter moved by one per replay;
+   the same with stereo methods 3 and 4 (no block-matching launch) and
+   with an external-disparity stack (ground truth; none). Host ms of each
+   call; at methods 2 and 3 the ms between CUDA events, eager and
+   replayed. (b) Phase 4's frames 1..10 through process_frame on a fresh
+   frontend, the step as a graph and then eager: synchronizing calls per
+   frame (sync debug mode "warn"), exactly one (the packed download) on
+   every graph frame that spawns no keyframe; one block-matching launch
+   per frame stepped; wall ms per frame.
+
 After the phases, torch.profiler (last, so that its tracing cannot slow the
 timed phases): the device time of each kernel of one single-image
 block-matching call, and the launches and summed kernel time per BP, per
-CSBP and per mono_step call. The last three lines are the per-kernel JSON record, the
-card's name and power limit, and the result line.
+CSBP, per mono_step call and per frame step (eager and replayed, phase
+16). The last four lines are the per-kernel JSON record, the script's
+time, the card's name and power limit, and the result line.
 """
 
 import contextlib
@@ -2231,12 +2249,150 @@ def _phase_parity(cam, cfg, dev):
     return card_launches
 
 
+STEP_STATE_FRAMES = 12  # phase 16 steps from the state after these frames
+STEP_SYNC_FRAMES = 10
+
+
+def _leaves(out):
+    from torch.utils._pytree import tree_leaves
+    return tree_leaves(out)
+
+
+def _step_args(fe, frame):
+    """The frontend_step arguments StereoFrontend._run_step passes for
+    `frame` (the frontend steps it eagerly, then its pose chain is put
+    back)."""
+    from scavislam_tpu_torch.models.frontend_step import frontend_step
+    rec = {}
+
+    def record(*args, **kwargs):
+        rec["args"], rec["kwargs"] = list(args), kwargs
+        return frontend_step(*args, **kwargs)
+
+    step, chain = fe._step, (fe._dev_R_cw, fe._dev_t_cw)
+    fe._step = record
+    try:
+        fe._run_step(frame, fe._collect_candidates())
+    finally:
+        fe._step = step
+        fe._dev_R_cw, fe._dev_t_cw = chain
+    return rec["args"], rec["kwargs"]
+
+
+def _phase_step_graph(cam, cfg, dev, frames, seq):
+    """Phase 16: the stereo frame step as a CUDA graph replay (StepGraph)
+    against the eager step, at 512x384 with Config(). Returns
+    {name: call} for the profile lines."""
+    from scavislam_tpu_torch.models.frontend import StereoFrontend
+    from scavislam_tpu_torch.models.frontend_step import frontend_step
+    from scavislam_tpu_torch.models.step_graph import StepGraph
+    from scavislam_tpu_torch.ops import stereo_bm
+    bm = stereo_bm.block_matching_disparity_bm
+    t_phase = time.perf_counter()
+
+    # -- (a) one replay against the eager step from the same state
+    fe = StereoFrontend(cam, cfg, device=dev)
+    fe.process_first_frame(frames[0])
+    for f in frames[1:STEP_STATE_FRAMES]:
+        if not fe.process_frame(f)[0]:
+            _fail(f"step graph: tracking failed at frame {f['frame_id']}")
+    if fe.next_kf < 2:
+        _fail("step graph: fewer than 2 keyframes in the starting state")
+    nxt = frames[STEP_STATE_FRAMES]
+    args, kwargs = _step_args(fe, nxt)
+    ext = args.copy()
+    gt = seq.frame(STEP_STATE_FRAMES)["disp_gt"]
+    ext[0] = torch.stack([nxt["left"].float(), nxt["right"].float(), gt])
+    ext[15] = True
+    variants = {"method 2": args, "external disparity": ext}
+    for m in (3, 4):
+        variants[f"method {m}"] = args[:17] + [m] + args[18:]
+    results, calls = [], {}
+    for name, a in variants.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = frontend_step(*a, **kwargs)
+        host_eager = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        graph = StepGraph()
+        graph(*a, **kwargs)  # the capture; its result is the warm-up's
+        torch.cuda.synchronize()
+        n0 = bm.launches
+        t0 = time.perf_counter()
+        replayed = graph(*a, **kwargs)
+        host_replay = 1e3 * (time.perf_counter() - t0)
+        moved = bm.launches - n0
+        torch.cuda.synchronize()
+        differ = [field for field, x, y in zip(eager._fields, replayed, eager)
+                  if not all(torch.equal(p, q) for p, q
+                             in zip(_leaves(x), _leaves(y)))]
+        want = 1 if name == "method 2" else 0
+        results.append((name, differ, moved, want))
+        line = (f"step graph (a) {name}: replay torch.equal to the eager "
+                f"step {not differ}" + (f" (differ: {differ})" if differ
+                                        else "")
+                + f", block-matching launches per replay {moved} (want "
+                f"{want}), tracked {int(eager.packed[25])} gated; host ms "
+                f"eager {host_eager:.1f} replay {host_replay:.2f}")
+        if name in ("method 2", "method 3"):
+            ms_e = _cuda_ms(lambda a=a: frontend_step(*a, **kwargs), 5)
+            ms_r = _cuda_ms(lambda a=a, g=graph: g(*a, **kwargs),
+                            TIMING_RUNS)
+            line += (f"; ms between CUDA events eager {ms_e:.2f} replay "
+                     f"{ms_r:.3f} (median of 5 / {TIMING_RUNS})")
+            calls[f"eager step, {name}"] = (
+                lambda a=a: frontend_step(*a, **kwargs))
+            calls[f"replay, {name}"] = lambda a=a, g=graph: g(*a, **kwargs)
+        print(line, flush=True)
+
+    # -- (b) synchronizing calls per frame through process_frame
+    counts, wall, kf = {}, {}, {}
+    for mode in ("graph", "eager"):
+        fe = StereoFrontend(cam, cfg, device=dev)
+        if mode == "eager":
+            fe._step = frontend_step
+        n0 = bm.launches
+        fe.process_first_frame(frames[0])
+        counts[mode], wall[mode], kf[mode] = [], [], []
+        for f in frames[1:1 + STEP_SYNC_FRAMES]:
+            t0 = time.perf_counter()
+            (ok, dropped), n = _counted_syncs(lambda f=f: fe.process_frame(f))
+            wall[mode].append(1e3 * (time.perf_counter() - t0))
+            if not ok:
+                _fail(f"step graph (b): {mode} lost frame {f['frame_id']}")
+            counts[mode].append(n)
+            kf[mode].append(dropped)
+        launches = bm.launches - n0
+        if mode == "graph" and launches != 1 + STEP_SYNC_FRAMES:
+            _fail(f"step graph (b): {launches} block-matching launches for "
+                  f"{1 + STEP_SYNC_FRAMES} frames")
+    print(f"step graph (b): synchronizing calls per process_frame over "
+          f"frames 1..{STEP_SYNC_FRAMES}: graph {counts['graph']}, eager "
+          f"{counts['eager']} (keyframe spawned: {kf['graph']}); wall ms per "
+          f"frame (median) graph {np.median(wall['graph']):.1f} eager "
+          f"{np.median(wall['eager']):.1f}; block-matching launches one per "
+          f"frame stepped; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    for name, differ, moved, want in results:
+        if differ:
+            _fail(f"step graph (a) {name}: the replay differs from the eager "
+                  f"step in {differ}")
+        if moved != want:
+            _fail(f"step graph (a) {name}: {moved} block-matching launches "
+                  f"per replay, {want} expected")
+    if any(n != 1 for n, d in zip(counts["graph"], kf["graph"]) if not d):
+        _fail(f"step graph (b): synchronizing calls per frame "
+              f"{counts['graph']}, one expected on frames without a spawn")
+    return calls
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
 
 
 def main():
+    t_script = time.perf_counter()
     # -- 1. device
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -2557,6 +2713,8 @@ def main():
         print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
     # -- 15. the card against the CPU on the same frames and draws
     launches += _phase_parity(cam, cfg, dev)
+    # -- 16. the frame step as a CUDA graph against the eager step
+    step_calls = _phase_step_graph(cam, cfg, dev, frames, seq)
 
     try:
         dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(
@@ -2581,6 +2739,16 @@ def main():
     except Exception as e:  # the profiler is a report, not a check
         prof = f"not measured ({type(e).__name__}: {e})"
     print(f"profile: mono_step at 512x384 (phase 13 a): {prof}", flush=True)
+    for name, fn in step_calls.items():
+        try:
+            rows = _kernel_profile(fn, 3)
+            prof = (f"{sum(n for _, n, _ in rows):.0f} CUDA kernel launches "
+                    f"per call, {sum(us for _, _, us in rows) / 1e3:.3f} ms "
+                    "of kernel time summed (3 calls)")
+        except Exception as e:  # the profiler is a report, not a check
+            prof = f"not measured ({type(e).__name__}: {e})"
+        print(f"profile: frame step at 512x384 (phase 16), {name}: {prof}",
+              flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "stereo_bm", "route": "cuda", "source": ROUTE_SOURCE,
@@ -2592,6 +2760,8 @@ def main():
          "max_abs_err": max_abs_err_b, "ms": ms_kb, "plain_ms": ms_pb,
          "bound_ms": bound_b, "bound_by": bound_by_b, "library_ms": None},
     ]}))
+    print(f"script: {time.perf_counter() - t_script:.1f} s from start to "
+          "the result line", flush=True)
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -90,7 +90,8 @@ def _recording(log):
 
     def dense(*a, **k):
         out = lm(*a, **k)
-        log.append(("dense", out[1].cpu().numpy(), float(out[2]), out[3]))
+        log.append(("dense", out[1].cpu().numpy(), float(out[2]),
+                    int(out[3])))
         return out
 
     def motion(*a, **k):
@@ -114,6 +115,8 @@ def card():
         for d in (dev, torch.device("cpu")):
             fe = load_shared_state(StereoFrontend(CAM, cfg, device=d), src,
                                    d)
+            # eager: the recording reads each LM's result on the host
+            fe._step = frontend_step.frontend_step
             log.clear()
             out = fe._run_step(f, fe._collect_candidates())
             runs.append((out, list(log)))

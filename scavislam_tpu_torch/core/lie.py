@@ -351,34 +351,6 @@ def _solve3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return x / det[..., None]
 
 
-def se3_exp_host(xi: np.ndarray):
-    """SE3.exp of ONE tangent vector on the host, in numpy float32: the same
-    formula and Taylor branches, without a device round trip. Used by the LM
-    loops, which update a single pose per iteration. Returns (R, t)."""
-    f32 = np.float32
-    xi = np.asarray(xi, f32)
-    ups, omega = xi[:3], xi[3:]
-    theta2 = f32(np.sum(omega * omega))
-    if theta2 < _TAYLOR_T2:
-        t4 = theta2 * theta2
-        A = f32(1.0) - theta2 / f32(6.0) + t4 / f32(120.0)
-        B = f32(0.5) - theta2 / f32(24.0) + t4 / f32(720.0)
-        C = f32(1.0 / 6.0) - theta2 / f32(120.0) + t4 / f32(5040.0)
-    else:
-        theta = np.sqrt(theta2)
-        A = np.sin(theta) / theta
-        B = (f32(1.0) - np.cos(theta)) / theta2
-        C = (f32(1.0) - A) / theta2
-    o0, o1, o2 = omega
-    z = f32(0.0)
-    Om = np.array([[z, -o2, o1], [o2, z, -o0], [-o1, o0, z]], f32)
-    Om2 = Om @ Om
-    eye = np.eye(3, dtype=f32)
-    R = (eye + A * Om + B * Om2).astype(f32)
-    V = (eye + B * Om + C * Om2).astype(f32)
-    return R, (V @ ups).astype(f32)
-
-
 class PoseRT(NamedTuple):
     """Host-side numpy rigid pose (R, t): the per-frame bookkeeping type
     (trajectories, packets, keyframe policy) — it never touches the device.

@@ -32,7 +32,7 @@ import sys
 import time
 from collections import Counter
 from contextlib import nullcontext
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -41,8 +41,12 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3, PoseRT
 from scavislam_tpu_torch.models.dense_tracker import to_device_pose
-from scavislam_tpu_torch.models.frontend import Fetch
-from scavislam_tpu_torch.models.map_store import materialize_points
+from scavislam_tpu_torch.models.frontend import Fetch, _upload
+from scavislam_tpu_torch.models.map_store import (
+    PointTable,
+    PoseTable,
+    materialize_points,
+)
 from scavislam_tpu_torch.models.matcher import _match_level
 from scavislam_tpu_torch.models.pose_optimizer import motion_only_ba_robust
 from scavislam_tpu_torch.models.slam_graph import (
@@ -51,7 +55,9 @@ from scavislam_tpu_torch.models.slam_graph import (
     GraphPoint,
     SlamGraph,
 )
+from scavislam_tpu_torch.models.step_graph import GraphedFn
 from scavislam_tpu_torch.ops.fast import corner_buckets_prefiltered
+from scavislam_tpu_torch.ops.image import build_pyramid
 from scavislam_tpu_torch.pipeline.monitors import (
     BackendMonitor,
     PlaceRecognizerMonitor,
@@ -163,6 +169,10 @@ class Backend:
         # one in-flight registration: (root_id, padded ids, Fetch), applied
         # by _finish_registration at a later poll
         self._pending_reg = None
+        # the registration program as CUDA graphs, per camera and bounds
+        self._register_graphs: dict = {}
+        if self.device.type == "cuda":
+            self._capture_register_program()
         # why registration / loop-closure attempts succeeded or died
         self.counters = Counter()
         self.per_mon = None
@@ -590,24 +600,41 @@ class Backend:
         n = min(len(cand_ids), CAND_CAP)
         ids[:n] = cand_ids[:n]
         ids_t = _upload(ids, dev)
-        xyz_w, R_aw, t_aw, patches, ok = materialize_points(
-            poses_tab, points_tab, ids_t
-        )
-        lvl_ids = points_tab.level[
-            ids_t.clamp(0, points_tab.level.shape[0] - 1)].to(torch.int32)
+        T0 = PoseRT.from_any(T_init)
+        T0 = to_device_pose(np.asarray(T0.R, np.float32),
+                            np.asarray(T0.t, np.float32), dev)
+        packed = self._register_program(dev)(pyr, disp, T0.R, T0.t, ids_t,
+                                             poses_tab, points_tab)
+        return ids, Fetch(packed)
+
+    def _register_program(self, dev):
+        """The registration's device program: `_register_from_tables` on
+        the fused program, as a CUDA graph replay on a card."""
         cam_key = tuple(
             (float(c.focal), float(c.pp[0]), float(c.pp[1]),
              float(c.baseline), int(c.size[0]), int(c.size[1]))
             for c in self.cams
         )
-        fn = _build_register_packed(
-            cam_key, 0.18, float(self.cfg.ui.max_reproj_error) * 2.0)
-        T0 = PoseRT.from_any(T_init)
-        T0 = to_device_pose(np.asarray(T0.R, np.float32),
-                            np.asarray(T0.t, np.float32), dev)
-        packed = fn(pyr, disp, T0.R, T0.t, xyz_w, R_aw, t_aw, patches, ok,
-                    lvl_ids, ids_t >= 0)
-        return ids, Fetch(packed)
+        key = (cam_key, 0.18, float(self.cfg.ui.max_reproj_error) * 2.0)
+        fn = partial(_register_from_tables, _build_register_packed(*key))
+        if dev.type != "cuda":
+            return fn
+        return self._register_graphs.setdefault((key, dev), GraphedFn(fn))
+
+    def _capture_register_program(self):
+        """Capture the registration's graph on the constructing thread, on
+        empty tables and blank images of the frame step's shapes (a capture
+        on the backend's thread would be broken by a device-wide
+        synchronization on any other)."""
+        dev = self.device
+        w, h = self.cam.size
+        img = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        self._register_program(dev)(
+            build_pyramid(img, self.levels), img,
+            torch.eye(3, dtype=torch.float32, device=dev),
+            torch.zeros(3, dtype=torch.float32, device=dev),
+            torch.full((CAND_CAP,), -1, dtype=torch.int64, device=dev),
+            PoseTable.empty(device=dev), PointTable.empty(device=dev))
 
     @staticmethod
     def _match_and_align_finish(ids, packed):
@@ -634,13 +661,17 @@ class Backend:
         return self._match_and_align_finish(ids, fut.result())
 
 
-def _upload(x: np.ndarray, device) -> torch.Tensor:
-    """Host array -> device tensor without a host sync on a card (a pinned
-    non-blocking copy)."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+def _register_from_tables(fn, pyr, disp, R0, t0, ids_t, poses_tab,
+                          points_tab):
+    """The device side of one registration: the candidates materialized
+    from the tables (ids padded with -1), then the fused program `fn`
+    (`_build_register_packed`'s)."""
+    xyz_w, R_aw, t_aw, patches, ok = materialize_points(poses_tab, points_tab,
+                                                        ids_t)
+    lvl_ids = points_tab.level[
+        ids_t.clamp(0, points_tab.level.shape[0] - 1)].to(torch.int32)
+    return fn(pyr, disp, R0, t0, xyz_w, R_aw, t_aw, patches, ok, lvl_ids,
+              ids_t >= 0)
 
 
 @lru_cache(maxsize=8)

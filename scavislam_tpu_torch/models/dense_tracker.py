@@ -10,15 +10,15 @@ between the previous frame's back-projected cloud and the current image:
 Two forms, as in the twin:
 - inverse compositional (``_lm_level_ic``, the frame step's): the template
   Jacobian is computed once per cloud (``template_jacobian``) and the update
-  is T <- T exp(-d). The per-point passes run on the device; the LM control
-  runs on the host in float32 numpy on the fetched 6x6 system: one sync per
-  iteration, where the twin's ``lax.while_loop`` needs none.
+  is T <- T exp(-d);
 - forward compositional (``_lm_level``, behind the public
   ``dense_tracking``): the residual Jacobian is rebuilt from the sampled
-  gradients at every pose and the update is T <- exp(x) T. Its LM runs as
-  MAX_ITERS * MAX_TRIALS masked trips on the device (the bound on the
-  twin's while_loop), with a Cholesky that reports failure instead of
-  raising: no host read.
+  gradients at every pose and the update is T <- exp(x) T.
+Both LMs run as MAX_ITERS * MAX_TRIALS masked trips on the device (the
+bound on the twin's ``lax.while_loop``), with a Cholesky that reports
+failure instead of raising: no host read, so the frame step captures into
+a CUDA graph. On the CPU they leave the loop at the twin's stop
+(``lm_exits_early``), bit for bit the same result.
 
 Bilinear sampling has the exact semantics of the twin's ``_sample_qpack``
 (clamped base, fractions from the clamped base). The twin's tap packing
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from scavislam_tpu_torch.core.camera import StereoCamera
-from scavislam_tpu_torch.core.lie import SE3, se3_exp_host
+from scavislam_tpu_torch.core.lie import SE3
 from scavislam_tpu_torch.ops.image import bilinear_sample, float_to_index
 
 RES_CLAMP = 0.1
@@ -161,30 +161,6 @@ def _ic_pass(cam, img, R, t, xyz_ref, i_ref, J_ref, valid):
     return H, b, chi2
 
 
-def solve_spd_host(Hd: np.ndarray, rhs: np.ndarray) -> np.ndarray:
-    """Cholesky solve of a 6x6 float32 system on the host; zeros where the
-    factorization fails or the result is not finite (the twin's NaN -> 0
-    guard)."""
-    try:
-        L = np.linalg.cholesky(Hd)
-    except np.linalg.LinAlgError:
-        return np.zeros_like(rhs)
-    x = np.linalg.solve(L.T, np.linalg.solve(L, rhs)).astype(np.float32)
-    return np.where(np.isfinite(x), x, np.float32(0.0))
-
-
-def fetch_host(*tensors):
-    """Copy small device results to the host in ONE transfer (one sync);
-    returns float32 numpy arrays of the original shapes."""
-    flat = torch.cat([x.reshape(-1).to(torch.float32)
-                      for x in tensors]).cpu().numpy()
-    out, o = [], 0
-    for x in tensors:
-        out.append(flat[o:o + x.numel()].reshape(tuple(x.shape)))
-        o += x.numel()
-    return out
-
-
 def to_device_pose(R: np.ndarray, t: np.ndarray, device) -> SE3:
     """Upload a host pose in ONE transfer (asynchronous from pinned memory
     on a CUDA device)."""
@@ -194,56 +170,74 @@ def to_device_pose(R: np.ndarray, t: np.ndarray, device) -> SE3:
     return SE3(buf[:9].reshape(3, 3), buf[9:])
 
 
-def lm_damp(H: np.ndarray, mu) -> np.ndarray:
-    """H + mu * diag(H) + 1e-12 I (multiplicative LM damping), float32."""
-    f32 = np.float32
-    return (H + f32(mu) * np.diag(np.diag(H)) + f32(1e-12) * np.eye(6, dtype=f32)
-            ).astype(f32)
+# the fixed-trip LMs leave their loop at the twin's stop on the CPU, where
+# reading the flag costs nothing (every later trip would change nothing);
+# on a card they run every trip, so that they enqueue, and capture into a
+# CUDA graph, without a host read
+EARLY_EXIT_ON_CPU = True
+
+
+def lm_exits_early(device: torch.device) -> bool:
+    """Whether a fixed-trip LM on `device` reads its stop flag after each
+    trip and leaves the loop once the twin's loop would have ended."""
+    return EARLY_EXIT_ON_CPU and device.type == "cpu"
 
 
 def _lm_level_ic(cam, img, xyz_ref, i_ref, J_ref, valid, R0, t0,
                  max_iters=MAX_ITERS):
-    """Inverse-compositional LM for one pyramid level. Returns (R, t, chi2,
-    iters): R, t, chi2 on the image's device, iters the accepted steps.
+    """Inverse-compositional LM for one pyramid level, on the device with no
+    host read. Returns (R, t, chi2, iters) tensors.
 
-    The per-point passes run on the image's device; the LM control (6x6
-    solve, SE3 update, damping schedule, stop test) runs on the host in
-    float32 numpy on the fetched (H, b, chi2) — one small transfer each way
-    per iteration; the host reads `stop` there (the twin's lax.while_loop,
-    evaluated eagerly)."""
-    dev = img.device
-    f32 = np.float32
-    R, t = fetch_host(R0, t0)
-    out = _ic_pass(cam, img, R0, t0, xyz_ref, i_ref, J_ref, valid)
-    chi2_dev = out[2]
-    H, b, chi2 = fetch_host(*out)
-    mu, nu = f32(0.01), f32(2.0)
-    trial = 0
-    it = 0
-    stop = False
-    while it < max_iters and not stop:
-        d = solve_spd_host(lm_damp(H, mu), -b)
-        Re, te = se3_exp_host(-d)
-        R_new, t_new = (R @ Re).astype(f32), (R @ te + t).astype(f32)
-        Td = to_device_pose(R_new, t_new, dev)
-        out = _ic_pass(cam, img, Td.R, Td.t, xyz_ref, i_ref, J_ref, valid)
-        H_new, b_new, new_chi2 = fetch_host(*out)
-        rho = f32(chi2 - new_chi2)
-        if rho > 0:
-            mu = f32(mu * max(f32(1.0 / 3.0), f32(1.0) - (f32(2.0) * rho - f32(1.0)) ** 3))
-            nu = f32(2.0)
-            R, t, H, b, chi2 = R_new, t_new, H_new, b_new, new_chi2
-            chi2_dev = out[2]
-            trial = 0
-            it += 1
-            stop = bool(np.max(np.abs(d)) <= 1e-5)
-        else:
-            mu = f32(mu * nu)
-            nu = f32(nu * 2.0)
-            trial += 1
-            stop = trial >= MAX_TRIALS
-    Td = to_device_pose(R, t, dev)
-    return Td.R, Td.t, chi2_dev, it
+    The twin's while_loop body (deferred acceptance: each trip evaluates
+    the CANDIDATE pose T exp(-d) and compares its chi2 with the
+    incumbent's; an accept carries the candidate's H and b over, a reject
+    keeps the incumbent's; the mu rule on the un-normalized gain) as
+    max_iters * MAX_TRIALS masked trips: at most MAX_TRIALS - 1 rejections
+    come before each of max_iters accepts, so the twin runs no more bodies,
+    and a trip past its stop changes nothing. The damped 6x6 system is one
+    unbatched Cholesky that reports failure instead of raising; a failed
+    factorization or a non-finite step gives 0, the twin's NaN guard."""
+    dev, f32 = img.device, torch.float32
+    H, b, chi2 = _ic_pass(cam, img, R0, t0, xyz_ref, i_ref, J_ref, valid)
+    R, t = R0, t0
+    # device fills: a host-built tensor would sync the stream
+    mu = torch.full((), 0.01, dtype=f32, device=dev)
+    nu = torch.full((), 2.0, dtype=f32, device=dev)
+    trial = torch.zeros((), dtype=torch.int32, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    eps = 1e-12 * torch.eye(6, dtype=f32, device=dev)
+    early = lm_exits_early(dev)
+    for _ in range(max_iters * MAX_TRIALS):
+        active = (it < max_iters) & ~stop
+        Hd = H + mu * torch.diag(torch.diag(H)) + eps
+        L, info = torch.linalg.cholesky_ex(Hd)
+        d = torch.cholesky_solve(-b[:, None], L)[:, 0]
+        d = torch.where(torch.isfinite(d) & (info == 0), d, 0.0)
+        Te = SE3.exp(-d)
+        R_new, t_new = R @ Te.R, R @ Te.t + t
+        H_new, b_new, chi2_new = _ic_pass(cam, img, R_new, t_new, xyz_ref,
+                                          i_ref, J_ref, valid)
+        rho = chi2 - chi2_new
+        accept = active & (rho > 0)
+        reject = active & ~(rho > 0)
+        stop_acc = torch.max(torch.abs(d)) <= 1e-5
+        mu_acc = mu * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        trial_new = torch.where(accept, 0, trial + 1)
+        R = torch.where(accept, R_new, R)
+        t = torch.where(accept, t_new, t)
+        H = torch.where(accept, H_new, H)
+        b = torch.where(accept, b_new, b)
+        chi2 = torch.where(accept, chi2_new, chi2)
+        mu = torch.where(accept, mu_acc, torch.where(reject, mu * nu, mu))
+        nu = torch.where(accept, 2.0, torch.where(reject, nu * 2.0, nu))
+        trial = torch.where(active, trial_new, trial)
+        it = torch.where(accept, it + 1, it)
+        stop = torch.where(active, torch.where(accept, stop_acc,
+                                               trial_new >= MAX_TRIALS), stop)
+        if early and bool(stop | (it >= max_iters)):
+            break
+    return R, t, chi2, it
 
 
 def _lm_level(cam, img, dx_img, dy_img, xyz_ref, i_ref, valid, R0, t0):
@@ -266,10 +260,11 @@ def _lm_level(cam, img, dx_img, dy_img, xyz_ref, i_ref, valid, R0, t0):
     trial = torch.zeros((), dtype=torch.int32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     stop = torch.zeros((), dtype=torch.bool, device=dev)
-    eye = torch.eye(6, dtype=f32, device=dev)
+    eps = 1e-12 * torch.eye(6, dtype=f32, device=dev)
+    early = lm_exits_early(dev)
     for _ in range(MAX_ITERS * MAX_TRIALS):
         active = (it < MAX_ITERS) & ~stop
-        Hd = H + mu * torch.diag(torch.diag(H)) + 1e-12 * eye
+        Hd = H + mu * torch.diag(torch.diag(H)) + eps
         L, info = torch.linalg.cholesky_ex(Hd)
         x = torch.cholesky_solve(-b[:, None], L)[:, 0]
         x = torch.where(torch.isfinite(x) & (info == 0), x, 0.0)
@@ -295,6 +290,8 @@ def _lm_level(cam, img, dx_img, dy_img, xyz_ref, i_ref, valid, R0, t0):
         it = torch.where(accept, it + 1, it)
         stop = torch.where(active, torch.where(accept, stop_acc,
                                                trial_new >= MAX_TRIALS), stop)
+        if early and bool(stop | (it >= MAX_ITERS)):
+            break
     return R, t, chi2, it
 
 

@@ -16,9 +16,16 @@ on the frame just stepped) and pipelined (``process_frame_pipelined``: the
 policy runs on the frame dispatched ``pipeline_depth`` frames earlier, its
 packed vector fetched through a :class:`Fetch` — a non-blocking copy into
 pinned host memory behind a CUDA event; the keyframe spawn's payload fetch
-is deferred to a later consume). The step's two LMs read their stop flags
-on the host once per iteration, so on a card the dispatch itself waits for
-the device and pipelining overlaps little beyond the fetch.
+is deferred to a later consume).
+
+The frame step on a card: ``models.step_graph.StepGraph`` replays it as a
+CUDA graph (captured at the first frame, again only when a static input
+such as the stack's shape changes); the step makes no host read, so a
+frame costs its upload, one graph replay and the packed download. The
+replay call returns once the card has taken most of the graph's kernels,
+about the step's device time, so pipelining overlaps little beyond the
+fetch. On the CPU ``frontend_step`` runs directly. The candidate ids and
+the seed pose go up as pinned, non-blocking copies.
 
 Backend feedback: ``apply_neighborhood`` adopts a backend-optimized
 neighborhood (host mirrors at once; the device pose/psi writes as ONE packed
@@ -79,6 +86,7 @@ from scavislam_tpu_torch.models.map_store import (
     PoseTable,
     scatter_psi,
 )
+from scavislam_tpu_torch.models.step_graph import StepGraph
 from scavislam_tpu_torch.ops.descriptors import BOW_COLS, BOW_KEYPOINTS
 from scavislam_tpu_torch.ops.rectify import Rectifier
 from scavislam_tpu_torch.utils.config import Config
@@ -236,6 +244,10 @@ class StereoFrontend:
 
         self._cand_np = None
         self._cand_dev = None
+        self._actkey_cache = None  # (actkey_id, its device int32 scalar)
+        # the frame step: CUDA graph replays on a card, eager on the CPU
+        self._step = (StepGraph() if self.device.type == "cuda"
+                      else frontend_step)
         self._dev_R_cw = None  # device tensors chaining the world pose
         self._dev_t_cw = None
         # finalized AddToOptimizer packets not yet handed to the system
@@ -300,12 +312,20 @@ class StereoFrontend:
 
     # -- frame processing -------------------------------------------------- #
     def _cand_device(self, cand_ids):
-        """Upload candidate ids only when they changed."""
+        """Upload candidate ids only when they changed (no host sync)."""
         if self._cand_np is None or not np.array_equal(self._cand_np, cand_ids):
             self._cand_np = cand_ids.copy()
-            self._cand_dev = torch.as_tensor(
-                cand_ids.astype(np.int32), device=self.device)
+            self._cand_dev = _upload(cand_ids.astype(np.int32), self.device)
         return self._cand_dev
+
+    def _actkey_dev(self):
+        """The active keyframe's id as a device int32 scalar (a fill, not a
+        host copy), the frame step's input."""
+        key = max(self.actkey_id, 0)
+        if self._actkey_cache is None or self._actkey_cache[0] != key:
+            self._actkey_cache = (key, torch.full(
+                (), key, dtype=torch.int32, device=self.device))
+        return self._actkey_cache[1]
 
     def _run_step(self, frame, cand_ids):
         ext = frame.get("disp")
@@ -334,17 +354,15 @@ class StereoFrontend:
         # optional undistort + rectify ahead of the frame step
         stacked = self._rectifier.rectify_stacked(stacked)
         R_cw = (self._dev_R_cw if self._dev_R_cw is not None
-                else torch.as_tensor(self._R_cw, dtype=torch.float32,
-                                     device=self.device))
+                else _upload_f32(self._R_cw, self.device))
         t_cw = (self._dev_t_cw if self._dev_t_cw is not None
-                else torch.as_tensor(self._t_cw, dtype=torch.float32,
-                                     device=self.device))
-        out = frontend_step(
+                else _upload_f32(self._t_cw, self.device))
+        out = self._step(
             stacked,
             self._prev_clouds, self._prev_intens, self._prev_valids,
             self._prev_J,
             R_cw, t_cw,
-            max(self.actkey_id, 0),
+            self._actkey_dev(),
             self.poses, self.points,
             self._cand_device(cand_ids),
             self._cam_params, self._cam_statics,
@@ -1070,13 +1088,18 @@ class StereoFrontend:
         self.points = self.points._replace(psi=psi)
 
 
-def _upload_f32(x: np.ndarray, device) -> torch.Tensor:
-    """f32 host array -> device tensor; a pinned non-blocking copy on a
-    card (no host sync)."""
-    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+def _upload(x: np.ndarray, device) -> torch.Tensor:
+    """Host array -> device tensor; a pinned non-blocking copy on a card
+    (no host sync)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _upload_f32(x: np.ndarray, device) -> torch.Tensor:
+    """f32 host array -> device tensor, as `_upload`."""
+    return _upload(np.asarray(x, np.float32), device)
 
 
 def _nb_scatter_packed(poses: PoseTable, psi_tab: torch.Tensor,

@@ -128,6 +128,14 @@ class FrontendStepOut(NamedTuple):
     cloud_J: tuple  # per-level (N, 6) template Jacobians
 
 
+def _device_index(i, device) -> torch.Tensor:
+    """A (1,) int64 index on `device` from a host int or a device scalar
+    (a device fill, not a host copy)."""
+    if isinstance(i, torch.Tensor):
+        return i.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(i), dtype=torch.int64, device=device)
+
+
 def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
     """uint8 frames -> f32 in [0, 1] (as the twin's compiled step does);
     float frames pass through."""
@@ -299,7 +307,7 @@ def frontend_step(
     frames_stacked,  # (2 or 3, H, W): left, right[, external disparity]
     prev_clouds, prev_intens, prev_valids, prev_J,
     R_cw_prev, t_cw_prev,  # previous frame's world pose (chain seed)
-    actkey_id: int,  # keyframe-policy statistics only
+    actkey_id,  # host int or device int scalar: policy statistics only
     poses: PoseTable,
     points: PointTable,
     cand_ids,  # (C,) int tensor, -1 padded
@@ -341,8 +349,10 @@ def frontend_step(
                       stereo_method, num_disp, stereo_opts)
 
     K_cap = poses.R.shape[0]
-    R_akw = poses.R[actkey_id]
-    t_akw = poses.t[actkey_id]
+    # index_select: indexing by a 0-dim tensor would read it on the host
+    ak = _device_index(actkey_id, dev)
+    R_akw = poses.R.index_select(0, ak)[0]
+    t_akw = poses.t.index_select(0, ak)[0]
 
     # -- 3. dense tracking, coarse to fine, anchored at the previous frame
     R_d = torch.eye(3, dtype=f32, device=dev)
@@ -452,7 +462,7 @@ def frontend_step(
     t_cak_new = t_cw - R_cak_new @ t_akw
     t_norm = torch.linalg.norm(t_cak_new)
 
-    own = gate & (points.anchor[safe] == actkey_id)
+    own = gate & (points.anchor[safe] == ak)
     track_len = torch.linalg.norm(obs_all[:, :2] - cand_uv0, dim=-1)
     n_own = torch.clamp(torch.sum(own.to(f32)), min=1.0)
     mean_track_len = torch.sum(

@@ -41,6 +41,7 @@ import torch
 from scavislam_tpu_torch.core.lie import SE3
 from scavislam_tpu_torch.models.frontend_step import (
     FAST_THRESHOLD,
+    _device_index,
     _extract_bucket_patches,
     _match_one_level,
     level_sections,
@@ -66,14 +67,6 @@ BEARING_INFO = 1e4
 MONO_SEARCH_RADIUS_PX = 12.0
 # tracking floor of the chain guard (MonoFrontend.MIN_TRACK_OBS)
 _MIN_BA_OBS = 15
-
-
-def _device_index(i, device) -> torch.Tensor:
-    """A (1,) int64 index on `device` from a host int or a device scalar
-    (a device fill, not a host copy)."""
-    if isinstance(i, torch.Tensor):
-        return i.reshape(1).to(device=device, dtype=torch.int64)
-    return torch.full((1,), int(i), dtype=torch.int64, device=device)
 
 
 class MonoStepOut(NamedTuple):

@@ -38,6 +38,7 @@ from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.backend import DetectedLoop
 from scavislam_tpu_torch.models.frontend import Fetch, _upload_f32
+from scavislam_tpu_torch.models.step_graph import GraphedFn
 from scavislam_tpu_torch.ops.descriptors import (BOW_KEYPOINTS, DESC_DIM,
                                                  bow_describe,
                                                  match_descriptors)
@@ -170,6 +171,21 @@ class PlaceRecognizer:
         self.counters = Counter()  # indexed / over_thr / geo checks / loops
         self.last_best = None
         self.working = False
+        # the geometric-check program as a CUDA graph at the padded
+        # capacity, captured here on blank inputs (no hypothesis drawn): a
+        # capture on the recognizer's thread would be broken by a
+        # device-wide synchronization on any other
+        self._check_graph = GraphedFn(_geom_check_device)
+        if self.device.type == "cuda":
+            n, dev = MAX_KEYPOINTS, self.device
+            desc = torch.zeros((n, DESC_DIM), device=dev)
+            xyz = torch.zeros((n, 3), device=dev)
+            valid = torch.ones(n, dtype=torch.bool, device=dev)
+            self._check_graph(
+                torch.zeros((NUM_HYPOTHESES, 3), dtype=torch.int64,
+                            device=dev),
+                desc, xyz, valid, desc, xyz, valid, self._cam_params,
+                INLIER_THR)
 
     def hypotheses(self, n: int) -> torch.Tensor:
         """The RANSAC draw of one geometric check: (NUM_HYPOTHESES, 3) raw
@@ -335,8 +351,10 @@ class PlaceRecognizer:
                 parts.append(dev[o:o + n] > 0.5)
                 o += n
             idx = self.hypotheses(na)
-            return Fetch(_geom_check_device(idx, *parts, self._cam_params,
-                                            INLIER_THR))
+            # a graph replay on a card (models/step_graph.py)
+            check = (self._check_graph if self.device.type == "cuda"
+                     else _geom_check_device)
+            return Fetch(check(idx, *parts, self._cam_params, INLIER_THR))
 
     def _geometric_check(self, query: Place, cand: Place):
         """BF match + 3-point RANSAC (placerecognizer.cpp:174-202) on the

@@ -7,16 +7,14 @@ MAX_ITERS accepted steps and MAX_TRIALS failed trials in a row,
 left-multiplicative updates. Invalid observations are masked (weight 0) so
 shapes stay fixed.
 
-Two forms of the same loop. ``motion_only_ba`` (the frame step's) runs the
-LM control on the host on fetched results, like the dense tracker: two small
-transfers per iteration. ``motion_only_ba_robust`` (the backend's
-registration) runs a fixed trip count with masked updates entirely on the
-device: MAX_ITERS trips, each solving and scoring an iteration's
-MAX_TRIALS damped retries at once; the same answer, no host sync, so a
-registration on the backend's stream never waits for the host.
-``motion_only_ba_uv`` (the mono step's, over 2-component uv residuals) is
-the fixed-trip loop too: the mono step calls it twice per frame and keeps
-one download per frame.
+One form of the loop, ``_lm_pose_fixed``: a fixed trip count with masked
+updates entirely on the device, MAX_ITERS trips, each solving and scoring
+an iteration's MAX_TRIALS damped retries at once; the twin's answer with no
+host sync. ``motion_only_ba`` (the stereo frame step's, called twice per
+frame), ``motion_only_ba_robust`` (the backend's registration) and
+``motion_only_ba_uv`` (the mono step's, over 2-component uv residuals) all
+run it, so the frame steps capture into CUDA graphs and a registration on
+the backend's stream never waits for the host.
 
 ``filter_points_info`` is the batched single-landmark information filter
 of the mono step: 5 fixed LM iterations per landmark, all landmarks at
@@ -27,18 +25,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from scavislam_tpu_torch.core.camera import StereoCamera
-from scavislam_tpu_torch.core.lie import SE3, hat, se3_exp_host
+from scavislam_tpu_torch.core.lie import SE3, hat
 from scavislam_tpu_torch.models.ba_solver import _inv3x3
-from scavislam_tpu_torch.models.dense_tracker import (
-    fetch_host,
-    lm_damp,
-    solve_spd_host,
-    to_device_pose,
-)
+from scavislam_tpu_torch.models.dense_tracker import lm_exits_early
 
 MAX_ITERS = 15
 MAX_TRIALS = 5
@@ -50,20 +42,6 @@ class MotionOnlyResult(NamedTuple):
     num_obs: torch.Tensor
     residuals: torch.Tensor  # (N, 3) final obs - pred (level-0 uvu pixels)
     inlier_mask: torch.Tensor  # valid & finite prediction
-
-
-def _predict(cam: StereoCamera, R, t, xyz_w):
-    """uvu prediction for all points; also returns the camera-frame points
-    and their depth."""
-    y = xyz_w @ R.T + t
-    x, yy = y[..., 0], y[..., 1]
-    z = y[..., 2]
-    z_safe = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
-    f = cam.focal
-    u = x / z_safe * f + cam.pp[0]
-    v = yy / z_safe * f + cam.pp[1]
-    ur = (x - cam.baseline) / z_safe * f + cam.pp[0]
-    return torch.stack([u, v, ur], dim=-1), y, z
 
 
 def _jac(cam: StereoCamera, y):
@@ -120,104 +98,9 @@ def _predict_and_jac_uv(focal, ppx, ppy, R, t, xyz_w):
     return pred, _jac_uv(focal, y), z
 
 
-def _predict_and_jac(cam: StereoCamera, R, t, xyz_w):
-    """uvu prediction + d(pred)/dxi for all points."""
-    pred, y, z = _predict(cam, R, t, xyz_w)
-    return pred, _jac(cam, y), z
-
-
 def pseudo_huber_weight(chi2: torch.Tensor, delta: float):
     """IRLS weight for the pseudo-Huber kernel at squared error chi2."""
     return 1.0 / torch.sqrt(1.0 + chi2 / (delta * delta))
-
-
-def motion_only_ba(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu, weights,
-                   valid, huber_delta: float = 1.0) -> MotionOnlyResult:
-    """Run the robust LM loop over the stereo (uvu) residuals."""
-
-    def _masked_residuals(R, t):
-        """Residuals with invalid / behind-camera / non-finite entries
-        zeroed, and the camera-frame points the Jacobian needs."""
-        pred, y, z = _predict(cam, R, t, xyz_w)
-        r = obs_uvu - pred
-        mask = valid & (z > 0.1) & torch.all(torch.isfinite(r), dim=-1)
-        r = torch.where(mask[:, None], r, torch.zeros_like(r))
-        return r, mask, y
-
-    return _lm_pose_core(_masked_residuals, lambda y: _jac(cam, y), T_init,
-                         weights, valid, huber_delta)
-
-
-def _lm_pose_core(_masked_residuals, jacobian, T_init, weights, valid,
-                  huber_delta):
-    """The robust LM loop over one SE3 pose:
-    `_masked_residuals(R, t) -> (r (N,D), mask (N,), aux)` and
-    `jacobian(aux) -> J (N,D,6)`.
-
-    The residual and normal-equation passes run on the points' device; the
-    LM control (6x6 solve, SE3 update, damping, stop test) runs on the host
-    in float32 numpy on the fetched results. The normal equations at an unchanged pose are
-    reused after a rejected step (the twin recomputes the same values)."""
-    dev = T_init.R.device
-
-    def chi2_of(R, t):
-        r, mask, _ = _masked_residuals(R, t)
-        s = torch.sum(r * r, dim=-1)
-        w = weights * pseudo_huber_weight(s, huber_delta) * mask
-        return torch.sum(w * s)
-
-    def normal_eq(R, t):
-        r, mask, aux = _masked_residuals(R, t)
-        s = torch.sum(r * r, dim=-1)
-        w = weights * pseudo_huber_weight(s, huber_delta) * mask
-        J = jacobian(aux)
-        J = torch.where(mask[:, None, None], J, torch.zeros_like(J))
-        Jw = J * w[:, None, None]
-        H = torch.einsum("nij,nik->jk", Jw, J)
-        b = torch.einsum("nij,ni->j", Jw, r)
-        return H, b
-
-    f32 = np.float32
-    R, t = fetch_host(T_init.R, T_init.t)
-    T_dev = T_init
-    chi2_dev = chi2_of(T_dev.R, T_dev.t)
-    (chi2,) = fetch_host(chi2_dev)
-    mu, nu = f32(0.01), f32(2.0)
-    trial = 0
-    it = 0
-    stop = False
-    H = b = None
-    while it < MAX_ITERS and not stop:
-        if H is None:
-            H, b = fetch_host(*normal_eq(T_dev.R, T_dev.t))
-        x = solve_spd_host(lm_damp(H, mu), b)
-        Re, te = se3_exp_host(x)
-        R_new, t_new = (Re @ R).astype(f32), (Re @ t + te).astype(f32)
-        T_new_dev = to_device_pose(R_new, t_new, dev)
-        new_chi2_dev = chi2_of(T_new_dev.R, T_new_dev.t)
-        (new_chi2,) = fetch_host(new_chi2_dev)
-        rho = f32(chi2 - new_chi2)
-        if rho > 0:
-            # normalized gain ratio for the mu schedule
-            denom = max(f32(np.sum(x * (mu * x + b))), f32(1e-20))
-            rho_n = f32(rho / denom)
-            mu = f32(mu * max(f32(1.0 / 3.0), f32(1.0) - (f32(2.0) * rho_n - f32(1.0)) ** 3))
-            nu = f32(2.0)
-            R, t, chi2, T_dev = R_new, t_new, new_chi2, T_new_dev
-            chi2_dev = new_chi2_dev
-            H = b = None
-            trial = 0
-            it += 1
-            stop = bool(np.max(np.abs(x)) <= 1e-10)
-        else:
-            mu = f32(mu * nu)
-            nu = f32(nu * 2.0)
-            trial += 1
-            stop = trial >= MAX_TRIALS
-
-    residuals, inliers, _ = _masked_residuals(T_dev.R, T_dev.t)
-    return MotionOnlyResult(
-        T_dev, chi2_dev, torch.sum(valid.to(torch.int32)), residuals, inliers)
 
 
 def _stereo_residuals(cam: StereoCamera, xyz_w, obs_uvu, valid):
@@ -242,13 +125,15 @@ def _stereo_residuals(cam: StereoCamera, xyz_w, obs_uvu, valid):
 
 def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
                    huber_delta):
-    """The robust LM loop of `_lm_pose_core` as a fixed trip count on the
-    device, no host read. Between two accepted steps the pose, H and b do
-    not change and each retry's damping follows from the last accept (mu,
-    2 mu, 8 mu, ...), so one trip solves and scores all MAX_TRIALS retries
-    of an iteration at once and takes the first that lowers chi2, as the
-    twin's while_loop takes them one after the other; none lowering it is
-    the twin's stop after MAX_TRIALS rejections. MAX_ITERS trips bound the
+    """The twin's robust LM loop over one SE3 pose as a fixed trip count on
+    the device, no host read: `_masked_residuals(R, t) -> (r (..., N, D),
+    mask (..., N), aux)` and `jacobian(aux) -> J (N, D, 6)`. Between two
+    accepted steps the pose, H and b do not change and each retry's damping
+    follows from the last accept (mu, 2 mu, 8 mu, ...), so one trip solves
+    and scores all MAX_TRIALS retries of an iteration at once and takes the
+    first that lowers chi2, as the twin's while_loop takes them one after
+    the other; none lowering it is the twin's stop after MAX_TRIALS
+    rejections. MAX_ITERS trips bound the
     twin's accepts; a trip past its end changes nothing. The chosen step is
     applied and evaluated again as a single pose (chi2, H and b of the new
     pose), so that the accepted chain rounds as the sequential loop's.
@@ -283,7 +168,8 @@ def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
     mu = torch.full((), 0.01, dtype=f32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     stop = torch.zeros((), dtype=torch.bool, device=dev)
-    eye = torch.eye(6, dtype=f32, device=dev)
+    eps = 1e-12 * torch.eye(6, dtype=f32, device=dev)
+    early = lm_exits_early(dev)
     # nu is 2 at the start of every iteration (an accept resets it), so
     # the k-th retry's damping is mu * nu_0 * ... * nu_(k-1) =
     # mu 2^(k(k+1)/2): powers of two, exact as the twin's products
@@ -292,8 +178,7 @@ def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
     for _ in range(MAX_ITERS):
         active = (it < MAX_ITERS) & ~stop
         mus = mu * scale  # (K,)
-        Hd = (H + mus[:, None, None] * torch.diag(torch.diag(H))
-              + 1e-12 * eye)
+        Hd = H + mus[:, None, None] * torch.diag(torch.diag(H)) + eps
         # one factorization per retry: the batched solve on CUDA (MAGMA)
         # allocates device memory, which a CUDA graph capture refuses
         x = []
@@ -331,13 +216,15 @@ def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
         # rejections in a row
         stop = torch.where(accept, torch.max(torch.abs(x_k)) <= 1e-10,
                            stop | active)
+        if early and bool(stop | (it >= MAX_ITERS)):
+            break
     return R, t, chi2
 
 
-def motion_only_ba_fixed(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu,
-                         weights, valid, huber_delta: float = 1.0
-                         ) -> MotionOnlyResult:
-    """`motion_only_ba` as a fixed-trip device loop (`_lm_pose_fixed`)."""
+def motion_only_ba(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu, weights,
+                   valid, huber_delta: float = 1.0) -> MotionOnlyResult:
+    """The robust LM over the stereo (uvu) residuals, a fixed-trip device
+    loop (`_lm_pose_fixed`): no host read."""
     residuals_of = _stereo_residuals(cam, xyz_w, obs_uvu, valid)
     R, t, chi2 = _lm_pose_fixed(residuals_of, lambda y: _jac(cam, y), T_init,
                                 weights, huber_delta)
@@ -375,14 +262,14 @@ def motion_only_ba_robust(cam: StereoCamera, T_init: SE3, xyz_w, obs_uvu,
     """LM + outlier rejection: optimize, drop obs with max-component residual
     above ``reject_thresh`` pixels, re-optimize. Each round is the
     fixed-trip device loop, so the whole call runs without a host sync."""
-    res = motion_only_ba_fixed(cam, T_init, xyz_w, obs_uvu, weights, valid,
-                               huber_delta)
+    res = motion_only_ba(cam, T_init, xyz_w, obs_uvu, weights, valid,
+                         huber_delta)
     keep = valid
     for _ in range(rounds - 1):
         keep = (keep & res.inlier_mask
                 & (torch.amax(torch.abs(res.residuals), dim=-1) < reject_thresh))
-        res = motion_only_ba_fixed(cam, res.T, xyz_w, obs_uvu, weights, keep,
-                                   huber_delta)
+        res = motion_only_ba(cam, res.T, xyz_w, obs_uvu, weights, keep,
+                             huber_delta)
     return res
 
 

@@ -41,6 +41,7 @@ from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.ba_solver import BAProblem, solve_ba
 from scavislam_tpu_torch.models.frontend import Fetch
+from scavislam_tpu_torch.models.step_graph import GraphedFn
 
 INNER = 1
 OUTER = 2
@@ -209,6 +210,20 @@ class SlamGraph:
         # async-solve state: at most ONE solve in flight (see optimize)
         self._pending: Optional[_PendingSolve] = None
         self.last_problem = None
+        # the single-device solve on a card as a CUDA graph, captured here,
+        # on the constructing thread: a capture on the backend's thread
+        # would be broken by a device-wide synchronization on any other
+        self._solve_graph = GraphedFn(_solve_packed_flat)
+        dev = self.solve_device or self.device
+        if dev.type == "cuda" and solve_mesh is None:
+            self._solve_graph(
+                self._cam_params(),
+                torch.zeros(_problem_len(self._caps), device=dev),
+                self._caps, 2, 3.0)
+
+    def _cam_params(self):
+        return (self.cam.focal, self.cam.pp[0], self.cam.pp[1],
+                self.cam.baseline)
 
     # -- edge table (parity: EdgeTable, slam_graph.hpp:197-363) ---------- #
     @staticmethod
@@ -691,8 +706,7 @@ class SlamGraph:
             e_valid.astype(np.float32),
             ibuf.view(np.float32),
         ])
-        cam_params = (self.cam.focal, self.cam.pp[0], self.cam.pp[1],
-                      self.cam.baseline)
+        cam_params = self._cam_params()
 
         dev = (self.solve_mesh.axis("sp").devices[0]
                if self.solve_mesh is not None
@@ -711,16 +725,12 @@ class SlamGraph:
         if self.solve_mesh is not None:
             solver = _sharded_packed_solver(
                 self.solve_mesh, cam_params, (P, L, O, E), num_iters, huber)
-            R_new, t_new, psi_new, stats = solver(buf_dev)
-        else:
-            R_new, t_new, psi_new, stats = _solve_packed(
-                cam_params, buf_dev, (P, L, O, E), num_iters, huber,
-            )
-        # ONE packed download for everything
-        packed_dev = torch.cat([
-            R_new.reshape(-1), t_new.reshape(-1), psi_new.reshape(-1),
-            torch.stack([stats.chi2_initial, stats.chi2_final]),
-        ])
+            packed_dev = _pack_solution(*solver(buf_dev))
+        else:  # a graph replay on a card (models/step_graph.py)
+            solve = (self._solve_graph if dev.type == "cuda"
+                     else _solve_packed_flat)
+            packed_dev = solve(cam_params, buf_dev, (P, L, O, E), num_iters,
+                               huber)
         self._pending = _PendingSolve(
             future=_SolveFetch(packed_dev, start, t0),
             slot_of=slot_of,
@@ -869,6 +879,13 @@ class _SolveFetch:
         return out, self._start.elapsed_time(self._fetch.event) / 1e3
 
 
+def _problem_len(caps) -> int:
+    """The f32 length of one packed problem at capacities `caps` (the
+    layout `_unpack_problem` reads)."""
+    P, L, O, E = caps
+    return 14 * P + 5 * L + 8 * O + 51 * E
+
+
 def _unpack_problem(buf: torch.Tensor, caps):
     """Unpack the single transfer buffer into a (BAProblem, anchor_perm) on
     its device. The int32 section rides the same f32 buffer bit for bit
@@ -925,6 +942,21 @@ def _solve_packed(cam_params, buf, caps, num_iters, huber):
     prob, aperm = _unpack_problem(buf, caps)
     return solve_ba(cam_params, prob, iters=num_iters, huber=huber,
                     anchor_perm=aperm)
+
+
+def _pack_solution(R_new, t_new, psi_new, stats):
+    """A solve's results as ONE vector, for one download:
+    [R, t, psi, chi2_initial, chi2_final]."""
+    return torch.cat([
+        R_new.reshape(-1), t_new.reshape(-1), psi_new.reshape(-1),
+        torch.stack([stats.chi2_initial, stats.chi2_final]),
+    ])
+
+
+def _solve_packed_flat(cam_params, buf, caps, num_iters, huber):
+    """`_solve_packed` with its results packed (`_pack_solution`)."""
+    return _pack_solution(*_solve_packed(cam_params, buf, caps, num_iters,
+                                         huber))
 
 
 def _sharded_packed_solver(mesh, cam_params, caps, num_iters, huber,

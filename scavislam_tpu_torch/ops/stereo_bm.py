@@ -41,7 +41,10 @@ Dispatch: ``block_matching_disparity_bm`` (H, W) and
 version for a tensor on the CPU and the CUDA kernels for a CUDA tensor;
 there is no fallback between them. Each has its own ``.launches`` counter,
 which counts wrapper calls that launch the kernels (one per frame, one per
-tick), not device kernels.
+tick), not device kernels. A call made while its thread captures a CUDA
+graph records the kernels without launching them: it is noted in
+``CAPTURED`` instead, and each replay of the graph counts it
+(``models/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -336,6 +340,25 @@ def bm_cuda_batched(lf: torch.Tensor, rf: torch.Tensor, num_disp: int = 64,
                    radius, uniqueness_ratio, texture_threshold)
 
 
+class _CaptureLog(threading.local):
+    """The counted wrappers called on this thread while it captures a CUDA
+    graph (``calls`` is a list then, None otherwise)."""
+
+    calls = None
+
+
+CAPTURED = _CaptureLog()
+
+
+def _count(wrapper):
+    """One launch of `wrapper`'s kernels, or one recorded into the graph
+    this thread is capturing."""
+    if CAPTURED.calls is not None:
+        CAPTURED.calls.append(wrapper)
+    else:
+        wrapper.launches += 1
+
+
 def block_matching_disparity_bm(
     left: torch.Tensor,
     right: torch.Tensor,
@@ -352,7 +375,7 @@ def block_matching_disparity_bm(
     if lf.is_cuda:
         out = bm_cuda(lf, rf, num_disp, radius, uniqueness_ratio,
                       texture_threshold)
-        block_matching_disparity_bm.launches += 1
+        _count(block_matching_disparity_bm)
         return out
     if lf.device.type != "cpu":
         raise ValueError(f"no block-matching kernel for device {lf.device}")
@@ -382,7 +405,7 @@ def block_matching_disparity_bm_batched(
     if lf.is_cuda:
         out = bm_cuda_batched(lf, rf, num_disp, radius, uniqueness_ratio,
                               texture_threshold)
-        block_matching_disparity_bm_batched.launches += 1
+        _count(block_matching_disparity_bm_batched)
         return out
     if lf.device.type != "cpu":
         raise ValueError(f"no block-matching kernel for device {lf.device}")

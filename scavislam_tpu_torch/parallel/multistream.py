@@ -25,7 +25,10 @@ the mesh's first device. ``mesh=None`` runs everything on the inputs' device.
   of the batched block-matching kernels; each stream's step then runs on
   that external disparity. The per-stream stages run as a loop over the
   streams: vmap's semantics are independent streams, and a loop keeps them
-  exactly;
+  exactly. On a card each stream's step is a replay of one CUDA graph
+  (``models.step_graph.StepGraph``, captured at the first tick; every
+  stream's inputs are copied into it), as the single-stream frontend runs
+  its step;
 - :func:`build_multistream_mono`: the per-frame monocular step
   (``models.mono_step``) over B streams, each with its own pose / point /
   Lambda tables, sharded over "dp"; no stereo stage;
@@ -43,6 +46,7 @@ from scavislam_tpu_torch.models.frontend_step import (
     frontend_step,
     normalize_frames,
 )
+from scavislam_tpu_torch.models.step_graph import StepGraph
 from scavislam_tpu_torch.ops.image import binomial3
 from scavislam_tpu_torch.ops.stereo_bm import (
     block_matching_disparity_bm_batched,
@@ -275,12 +279,18 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
     if stereo is not None and stereo not in STEREO_ROUTES:
         raise ValueError(f"stereo {stereo!r} not in {STEREO_ROUTES}")
     subs = tuple(dense_subs) if dense_subs is not None else DENSE_SUBS
+    graph = StepGraph()  # the per-stream steps on a card
 
     def step(frames, clouds, intens, valids, Js, R, t, actkey, poses,
              points, cand) -> FrontendStepOut:
         route = stereo or ("kernel" if frames.is_cuda else "twin")
         n = frames.shape[0]
-        actkey = [int(a) for a in actkey]
+        if frames.is_cuda:  # device fills: the graph takes tensors
+            run = graph
+            actkey = [torch.full((), int(a), dtype=torch.int32,
+                                 device=frames.device) for a in actkey]
+        else:
+            run, actkey = frontend_step, [int(a) for a in actkey]
         if route == "kernel":
             frames_f = normalize_frames(frames)
             left_s = torch.stack([binomial3(x) for x in frames_f[:, 0]])
@@ -290,7 +300,7 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
             frames = torch.cat([frames_f, disp[:, None]], dim=1)
         use_ext, method = (True, 2) if route == "kernel" else (False, 1)
         outs = [
-            frontend_step(
+            run(
                 frames[s], stream_slice(clouds, s), stream_slice(intens, s),
                 stream_slice(valids, s), stream_slice(Js, s), R[s], t[s],
                 actkey[s], stream_slice(poses, s), stream_slice(points, s),

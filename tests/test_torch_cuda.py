@@ -2,8 +2,9 @@
 PyTorch versions, and the port's paths on the card (the backend's solve,
 the place recognizer's describe and geometric check, threaded SlamSystem
 runs, BP and CSBP stereo, k-means) against the CPU; a debug view's one
-download; the sharded solve over the card listed twice. Every test here needs a CUDA
-card and skips without one.
+download; the sharded solve over the card listed twice; the stereo frame
+step and the backend's programs as CUDA graph replays against their eager
+calls. Every test here needs a CUDA card and skips without one.
 
 This file imports no JAX (the machine with the card has none), so on a card:
 
@@ -818,3 +819,113 @@ def test_slam_system_on_card_matches_cpu(cuda_device):
     assert cmp["misses"] == [], cmp
     assert card["counters"] == host["counters"]
     assert host["keyframes"] >= 2 and host["solves"] >= 1
+
+
+# -- the stereo frame step as a CUDA graph ---------------------------------- #
+
+@pytest.mark.cuda
+def test_frontend_step_replays_as_graph(cuda_device):
+    # one frame step (stereo method 2) from a 4-frame state on the card:
+    # enqueued with no synchronizing call (sync debug mode "error"), then
+    # captured by StepGraph and replayed, also with no synchronizing call:
+    # every output torch.equal to the eager call's, the block-matching
+    # counter moved by one for the replay
+    import chip_smoke
+    from probes import pose_lm_probe as plp
+    from scavislam_tpu_torch.models.frontend_step import frontend_step
+    from scavislam_tpu_torch.models.step_graph import StepGraph
+    frames = plp.frames(6)
+    fe = StereoFrontend(plp.CAM, plp.config(), device=cuda_device)
+    fe.process_first_frame(frames[0])
+    for f in frames[1:4]:
+        assert fe.process_frame(f)[0]
+    args, kwargs = chip_smoke._step_args(fe, frames[4])
+    graph = StepGraph()
+    graph(*args, **kwargs)  # the capture; its result is the warm-up's
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = frontend_step(*args, **kwargs)
+        before = stereo_bm.block_matching_disparity_bm.launches
+        replayed = graph(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (graph.captures, graph.replays) == (1, 1)
+    assert stereo_bm.block_matching_disparity_bm.launches == before + 1
+    assert float(eager.packed[25]) >= 20  # the frame tracks
+    for name, a, b in zip(eager._fields, replayed, eager):
+        for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                        torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_stereo_frontend_graph_matches_eager_loop(cuda_device):
+    # 12 frames through StereoFrontend on the card (the step captured at
+    # the first frame, replayed at the other 11) against the same frontend
+    # stepping frontend_step eagerly: the same poses at every frame, bit
+    # for bit, and the same keyframes
+    from probes import pose_lm_probe as plp
+    from scavislam_tpu_torch.models.frontend_step import frontend_step
+    frames = plp.frames()
+    runs = []
+    for eager in (False, True):
+        fe = StereoFrontend(plp.CAM, plp.config(), device=cuda_device)
+        if eager:
+            fe._step = frontend_step
+        fe.process_first_frame(frames[0])
+        poses = [fe._world_pose()]
+        for f in frames[1:]:
+            assert fe.process_frame(f)[0]
+            poses.append(fe._world_pose())
+        runs.append((fe, poses))
+    (fg, pg), (fe, pe) = runs
+    assert (fg._step.captures, fg._step.replays) == (1, len(frames) - 1)
+    assert fg.next_kf == fe.next_kf >= 2
+    for a, b in zip(pg, pe):
+        assert np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t)
+
+
+@pytest.mark.cuda
+def test_backend_programs_replay_as_graphs(cuda_device):
+    # the backend's solve and registration after a 12-frame unthreaded
+    # SlamSystem on the card, each program's graph replay (GraphedFn)
+    # against its eager call on the same inputs: the registration
+    # torch.equal; the solve within test_solve_ba_on_card_matches_cpu's
+    # bars (R, t, psi within 1e-3, chi2 within 1e-3 relative): its
+    # index_add_ sums are unordered atomics, and a replay differs from the
+    # eager call in the last bits
+    from probes import pose_lm_probe as plp
+    from scavislam_tpu_torch.models import slam_graph as tsg
+    from scavislam_tpu_torch.models.step_graph import GraphedFn
+    from scavislam_tpu_torch.pipeline.slam_system import SlamSystem
+    frames = plp.frames()
+    system = SlamSystem(plp.CAM, plp.config(), threaded=False,
+                        enable_loop_closure=False, device=cuda_device)
+    system.process_first_frame(frames[0])
+    for f in frames[1:]:
+        assert system.process_frame(f)
+    system.finish()
+    be = system.backend
+    cam_params, buf, caps = be.graph.last_problem
+    eager = tsg._solve_packed_flat(cam_params, buf, caps, 2, 3.0)
+    solve = GraphedFn(tsg._solve_packed_flat)
+    solve(cam_params, buf, caps, 2, 3.0)
+    replayed = solve(cam_params, buf, caps, 2, 3.0)
+    assert (solve.captures, solve.replays) == (1, 1)
+    rp, ep = replayed.cpu().numpy(), eager.cpu().numpy()
+    np.testing.assert_allclose(rp[:-2], ep[:-2], atol=1e-3)
+    np.testing.assert_allclose(rp[-2:], ep[-2:], rtol=1e-3)
+    kf = max(be.keyframe_snapshots)
+    pts, poses = be._last_tables
+    cand = np.flatnonzero(pts.valid.cpu().numpy())[:1024]
+    outs = [be._match_and_align_dispatch(be.keyframe_snapshots[kf],
+                                         be.graph.vertices[kf].T, cand, pts,
+                                         poses)[1].result().copy()
+            for _ in range(3)]
+    (graph,) = be._register_graphs.values()
+    assert graph.replays >= 2
+    assert outs[0][0] > 0  # pass 1 gated matches
+    np.testing.assert_array_equal(outs[1], outs[0])
+    np.testing.assert_array_equal(outs[2], outs[0])
