@@ -18,7 +18,9 @@ Both LMs run as MAX_ITERS * MAX_TRIALS masked trips on the device (the
 bound on the twin's ``lax.while_loop``), with a Cholesky that reports
 failure instead of raising: no host read, so the frame step captures into
 a CUDA graph. On the CPU they leave the loop at the twin's stop
-(``lm_exits_early``), bit for bit the same result.
+(``lm_exits_early``), bit for bit the same result, except in the lanes of a
+batched program (``lanes``: the multistream steps' vmap over streams),
+where the stop differs per stream.
 
 Bilinear sampling has the exact semantics of the twin's ``_sample_qpack``
 (clamped base, fractions from the clamped base). The twin's tap packing
@@ -32,6 +34,8 @@ back-project a disparity map into an anchor frame, whole or per level.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple
 
 import numpy as np
@@ -177,10 +181,45 @@ def to_device_pose(R: np.ndarray, t: np.ndarray, device) -> SE3:
 EARLY_EXIT_ON_CPU = True
 
 
+# set while a caller runs the LMs as lanes of a program vmapped over
+# streams (parallel.multistream)
+_LANES = contextvars.ContextVar("lanes", default=False)
+
+
+@contextlib.contextmanager
+def lanes():
+    """The LMs called in the body run as lanes of a program that the
+    caller vmaps over streams: every trip (the stop differs per lane),
+    and on a card with a capturable batched solve (``cho_solve``)."""
+    token = _LANES.set(True)
+    try:
+        yield
+    finally:
+        _LANES.reset(token)
+
+
 def lm_exits_early(device: torch.device) -> bool:
     """Whether a fixed-trip LM on `device` reads its stop flag after each
-    trip and leaves the loop once the twin's loop would have ended."""
-    return EARLY_EXIT_ON_CPU and device.type == "cpu"
+    trip and leaves the loop once the twin's loop would have ended. Never
+    in ``lanes``: the flag holds one value per stream there, and the LM
+    runs every trip, as on a card."""
+    return EARLY_EXIT_ON_CPU and device.type == "cpu" and not _LANES.get()
+
+
+def cho_solve(b: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """``torch.cholesky_solve(b, L)``. In ``lanes`` on a CUDA device, two
+    triangular solves instead: vmap batches the solve, and the batched
+    ``cholesky_solve`` there runs MAGMA, which allocates device memory and
+    so breaks a CUDA graph capture."""
+    if L.is_cuda and _LANES.get():
+        return _triangular_solves(b, L)
+    return torch.cholesky_solve(b, L)
+
+
+def _triangular_solves(b, L):
+    """x with L L^T x = b: forward, then back substitution."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def _lm_level_ic(cam, img, xyz_ref, i_ref, J_ref, valid, R0, t0,
@@ -212,7 +251,7 @@ def _lm_level_ic(cam, img, xyz_ref, i_ref, J_ref, valid, R0, t0,
         active = (it < max_iters) & ~stop
         Hd = H + mu * torch.diag(torch.diag(H)) + eps
         L, info = torch.linalg.cholesky_ex(Hd)
-        d = torch.cholesky_solve(-b[:, None], L)[:, 0]
+        d = cho_solve(-b[:, None], L)[:, 0]
         d = torch.where(torch.isfinite(d) & (info == 0), d, 0.0)
         Te = SE3.exp(-d)
         R_new, t_new = R @ Te.R, R @ Te.t + t
@@ -266,7 +305,7 @@ def _lm_level(cam, img, dx_img, dy_img, xyz_ref, i_ref, valid, R0, t0):
         active = (it < MAX_ITERS) & ~stop
         Hd = H + mu * torch.diag(torch.diag(H)) + eps
         L, info = torch.linalg.cholesky_ex(Hd)
-        x = torch.cholesky_solve(-b[:, None], L)[:, 0]
+        x = cho_solve(-b[:, None], L)[:, 0]
         x = torch.where(torch.isfinite(x) & (info == 0), x, 0.0)
         Te = SE3.exp(x)
         R_new, t_new = Te.R @ R, Te.R @ t + Te.t

@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from scavislam_tpu_torch.core.lie import SE3
 from scavislam_tpu_torch.models.frontend_step import (
@@ -199,8 +200,9 @@ def mono_step(
     w0, h0 = cam_statics[0]
     qx = (obs_uv[:, 0] > w0 / 2).to(torch.int64)
     qy = (obs_uv[:, 1] > h0 / 2).to(torch.int64)
-    quad_counts = torch.zeros(4, dtype=torch.int32, device=img.device)
-    quad_counts.scatter_add_(0, qy * 2 + qx, gate.to(torch.int32))
+    quad_counts = torch.sum(
+        F.one_hot(qy * 2 + qx, 4).to(torch.int32)
+        * gate[:, None].to(torch.int32), dim=0)
     # index_select: indexing by a 0-dim tensor would read it on the host
     ak = _device_index(actkey_id, img.device)
     R_akw = poses.R.index_select(0, ak)[0]

@@ -30,7 +30,7 @@ import torch
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3, hat
 from scavislam_tpu_torch.models.ba_solver import _inv3x3
-from scavislam_tpu_torch.models.dense_tracker import lm_exits_early
+from scavislam_tpu_torch.models.dense_tracker import cho_solve, lm_exits_early
 
 MAX_ITERS = 15
 MAX_TRIALS = 5
@@ -184,7 +184,7 @@ def _lm_pose_fixed(_masked_residuals, jacobian, T_init: SE3, weights,
         x = []
         for Hk in Hd:
             L, info = torch.linalg.cholesky_ex(Hk)
-            xk = torch.cholesky_solve(b[:, None], L)[:, 0]
+            xk = cho_solve(b[:, None], L)[:, 0]
             x.append(torch.where(torch.isfinite(xk) & (info == 0), xk, 0.0))
         x = torch.stack(x)
         Te = SE3.exp(x)

@@ -1,7 +1,9 @@
 """The stereo frame step replayed as a CUDA graph: the port's counterpart
 of the twin's ``jax.jit`` of ``models.frontend_step.frontend_step``, and
-the same for the backend's two programs (its solve and its registration),
-which the twin jits too.
+the same for the backend's two programs (its solve and its registration)
+and the multistream steps' batched programs
+(``parallel.multistream.OverDp``: the batched block-matching call and the
+vmapped step of a pool tick in one graph), which the twin jits too.
 
 The step makes no host read (its two LMs are fixed-trip device loops, the
 active keyframe is a device scalar), so one frame's tens of thousands of

@@ -400,8 +400,8 @@ def block_matching_disparity_bm_batched(
     if left.dim() != 3 or left.shape != right.shape:
         raise ValueError(f"need two (B, H, W) tensors of one shape, got "
                          f"{tuple(left.shape)} and {tuple(right.shape)}")
-    lf = torch.stack([_sobel_x_prefilter(x) for x in left])
-    rf = torch.stack([_sobel_x_prefilter(x) for x in right])
+    prefilter = torch.func.vmap(_sobel_x_prefilter)
+    lf, rf = prefilter(left), prefilter(right)
     if lf.is_cuda:
         out = bm_cuda_batched(lf, rf, num_disp, radius, uniqueness_ratio,
                               texture_threshold)

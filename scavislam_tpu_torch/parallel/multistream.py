@@ -2,9 +2,9 @@
 scavislam_tpu.parallel.multistream).
 
 The twin runs N independent camera streams as one vmapped program,
-shard_mapped over a ("dp", "sp") device mesh. The port keeps the stream
-axis as a leading batch dimension and runs a mesh in one process with
-explicit devices (parallel/mesh.py): each build function splits its
+shard_mapped over a ("dp", "sp") device mesh. The port does the same with
+``torch.func.vmap`` over the stream axis, and runs a mesh in one process
+with explicit devices (parallel/mesh.py): each build function splits its
 global inputs by the twin's partition specs, moves each shard to its
 device, launches every shard's work before any reduction, sums partials
 in fixed shard order on shard 0's device, and gathers global outputs to
@@ -20,19 +20,24 @@ the mesh's first device. ``mesh=None`` runs everything on the inputs' device.
   observation axis sharded over a mesh axis (models.ba_solver's
   ``sp_axis``);
 - :func:`build_multistream_frontend`: the full per-frame frontend step over
-  B streams, the B / dp streams of each "dp" shard on that shard's device.
-  On a CUDA device the disparity of a shard's streams comes from ONE call
-  of the batched block-matching kernels; each stream's step then runs on
-  that external disparity. The per-stream stages run as a loop over the
-  streams: vmap's semantics are independent streams, and a loop keeps them
-  exactly. On a card each stream's step is a replay of one CUDA graph
-  (``models.step_graph.StepGraph``, captured at the first tick; every
-  stream's inputs are copied into it), as the single-stream frontend runs
-  its step;
-- :func:`build_multistream_mono`: the per-frame monocular step
+  B streams as ONE program, the twin's ``vstep``: on a CUDA device one
+  call of the batched block-matching kernels for the streams of a shard,
+  then ``vmap`` of one stream's ``frontend_step`` over the stream axis;
+- :func:`build_multistream_mono`: ``vmap`` of the per-frame monocular step
   (``models.mono_step``) over B streams, each with its own pose / point /
-  Lambda tables, sharded over "dp"; no stereo stage;
+  Lambda tables; no stereo stage;
 - :func:`make_mesh` and :func:`shard_stream_batch`.
+
+Both step builders return an :class:`OverDp`: the eager program for CPU
+tensors, and one ``models.step_graph.GraphedFn`` per "dp" shard, which on
+a card replays the whole program as one CUDA graph (captured at the first
+call), as the twin's ``jax.jit`` runs it. The program runs one stream's
+step in ``dense_tracker.lanes``: its fixed-trip LMs run every trip, as
+they do on a card, and solve their damped systems with a capturable
+batched solve (``dense_tracker.cho_solve``). A lane rounds differently
+from the same stream's single-stream step (batched matrix products sum in
+another order); tests/test_torch_multistream_vmap.py holds the lanes to
+it.
 """
 
 from __future__ import annotations
@@ -40,13 +45,15 @@ from __future__ import annotations
 import torch
 
 from scavislam_tpu_torch.core.lie import SE3, hat
+from scavislam_tpu_torch.models.dense_tracker import lanes
 from scavislam_tpu_torch.models.frontend_step import (
     DENSE_SUBS,
     FrontendStepOut,
     frontend_step,
     normalize_frames,
 )
-from scavislam_tpu_torch.models.step_graph import StepGraph
+from scavislam_tpu_torch.models.mono_step import mono_step
+from scavislam_tpu_torch.models.step_graph import GraphedFn
 from scavislam_tpu_torch.ops.image import binomial3
 from scavislam_tpu_torch.ops.stereo_bm import (
     block_matching_disparity_bm_batched,
@@ -232,106 +239,125 @@ def build_sharded_ba(mesh, cam_params, iters: int = 2, huber: float = 3.0,
     return step
 
 
-def _over_dp(mesh, step):
-    """`step` over a stream batch, or with a mesh: the batch split into
-    B / dp streams per "dp" shard (every argument's leading axis; host
-    lists are sliced), each shard's step on its device, the outputs
-    gathered to the mesh's first device."""
-    if mesh is None:
-        return step
-    dp = mesh.shape["dp"]
-    devs = mesh.axis("dp").devices
+class OverDp:
+    """A program over a stream batch: run as it is on CPU tensors, and on
+    CUDA tensors as CUDA graph replays (``graphs``: one ``GraphedFn`` per
+    "dp" shard, one graph per static key, captured at the first call on
+    the caller's thread; no eager run after it). With a mesh the batch is
+    split into B / dp streams per "dp" shard (every argument's leading
+    axis; host lists are sliced), each shard's program runs on its device,
+    and the outputs are gathered to the mesh's first device. Argument
+    `actkey_arg` (the active keyframes: host ints or a tensor) becomes a
+    (B,) int32 tensor on the frames' device, since a graph keys on the
+    values of non-tensor arguments."""
 
-    def sharded(*args):
-        shards = [split(a, dp, devs.__getitem__) for a in args]
-        outs = [step(*(sh[i] for sh in shards)) for i in range(dp)]
-        return gather(outs, mesh.first)
+    def __init__(self, mesh, program, actkey_arg):
+        self.mesh = mesh
+        self.program = program
+        self.actkey_arg = actkey_arg
+        n = 1 if mesh is None else mesh.shape["dp"]
+        self.graphs = [GraphedFn(program) for _ in range(n)]
 
-    return sharded
+    def _run(self, i, args):
+        return (self.graphs[i] if args[0].is_cuda else self.program)(*args)
+
+    def __call__(self, *args):
+        args = list(args)
+        k = self.actkey_arg
+        args[k] = torch.as_tensor(args[k], dtype=torch.int32,
+                                  device=args[0].device)
+        if self.mesh is None:
+            return self._run(0, args)
+        dp = len(self.graphs)
+        devs = self.mesh.axis("dp").devices
+        parts = [split(a, dp, devs.__getitem__) for a in args]
+        return gather([self._run(i, [p[i] for p in parts])
+                       for i in range(dp)], self.mesh.first)
 
 
 def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
                                num_disp=64, max_reproj=2.0, dense_subs=None,
                                dense_sample="matmul", stereo=None):
-    """The full per-frame frontend step over a batch of B streams.
+    """The full per-frame frontend step over a batch of B streams: the
+    twin's ``vstep``, one program over the stream axis.
 
     Returns step(frames (B, 2, H, W), clouds, intens, valids, Js (per-level
-    tuples of (B, ...) tensors), R (B, 3, 3), t (B, 3), actkey (B host
-    ints), poses, points (tables with a leading B axis), cand (B, C)) ->
-    FrontendStepOut with a leading stream axis on every leaf.
+    tuples of (B, ...) tensors), R (B, 3, 3), t (B, 3), actkey ((B,) int
+    tensor or host ints), poses, points (tables with a leading B axis),
+    cand (B, C)) -> FrontendStepOut with a leading stream axis on every
+    leaf, as an :class:`OverDp`.
 
-    Stereo routes (`stereo`; None picks by the frames' device):
+    The program: the stereo route's disparity for all B streams, then
+    ``torch.func.vmap`` of one stream's ``frontend_step`` over the stream
+    axis. Stereo routes (`stereo`; None picks by the frames' device):
     - "kernel" (default on a CUDA device): uint8 -> f32, the 3x3 binomial
-      sensor-noise prefilter per stream, then ONE batched block-matching
-      call for the streams of a shard; each stream's step runs on that
-      external disparity, so it computes what a single-stream step
-      computes at stereo method 2. (The twin hands the RAW frames to its
-      batched TPU kernel, skipping the prefilter its single-stream step
-      applies; the port does not copy that.) On a CPU tensor the batched
-      kernel's plain version runs instead.
+      sensor-noise prefilter over the (B, H, W) stacks, then ONE batched
+      block-matching call; each stream's step runs on that external
+      disparity, so it computes what a single-stream step computes at
+      stereo method 2. (The twin hands the RAW frames to its batched TPU
+      kernel, skipping the prefilter its single-stream step applies; the
+      port does not copy that.) On a CPU tensor the batched kernel's plain
+      version runs instead.
     - "twin" (default on the CPU): each stream's step at stereo method 1,
       the cost-volume twin — what the JAX package runs on the CPU.
 
-    With a mesh, every input is split over "dp" (the twin's P("dp")): each
-    shard runs its B / dp streams on its device, with one batched
+    On a card the whole program (prefilter, batched kernel, vmapped step)
+    is one CUDA graph replay per call. With a mesh, every input is split
+    over "dp" (the twin's P("dp")): each shard runs the program over its
+    B / dp streams on its device, one graph and one batched
     block-matching call per shard, and the outputs are gathered to the
     mesh's first device."""
     if stereo is not None and stereo not in STEREO_ROUTES:
         raise ValueError(f"stereo {stereo!r} not in {STEREO_ROUTES}")
     subs = tuple(dense_subs) if dense_subs is not None else DENSE_SUBS
-    graph = StepGraph()  # the per-stream steps on a card
 
-    def step(frames, clouds, intens, valids, Js, R, t, actkey, poses,
-             points, cand) -> FrontendStepOut:
+    def vstep(frames, clouds, intens, valids, Js, R, t, actkey, poses,
+              points, cand) -> FrontendStepOut:
         route = stereo or ("kernel" if frames.is_cuda else "twin")
-        n = frames.shape[0]
-        if frames.is_cuda:  # device fills: the graph takes tensors
-            run = graph
-            actkey = [torch.full((), int(a), dtype=torch.int32,
-                                 device=frames.device) for a in actkey]
-        else:
-            run, actkey = frontend_step, [int(a) for a in actkey]
         if route == "kernel":
             frames_f = normalize_frames(frames)
-            left_s = torch.stack([binomial3(x) for x in frames_f[:, 0]])
-            right_s = torch.stack([binomial3(x) for x in frames_f[:, 1]])
+            smooth = torch.func.vmap(binomial3)
             disp = block_matching_disparity_bm_batched(
-                left_s, right_s, num_disp=num_disp, radius=5)
+                smooth(frames_f[:, 0]), smooth(frames_f[:, 1]),
+                num_disp=num_disp, radius=5)
             frames = torch.cat([frames_f, disp[:, None]], dim=1)
         use_ext, method = (True, 2) if route == "kernel" else (False, 1)
-        outs = [
-            run(
-                frames[s], stream_slice(clouds, s), stream_slice(intens, s),
-                stream_slice(valids, s), stream_slice(Js, s), R[s], t[s],
-                actkey[s], stream_slice(poses, s), stream_slice(points, s),
-                cand[s], cam_params, cam_statics, levels, num_disp, use_ext,
+
+        def one(frames, clouds, intens, valids, Js, R, t, ak, poses, points,
+                cand):
+            return frontend_step(
+                frames, clouds, intens, valids, Js, R, t, ak, poses, points,
+                cand, cam_params, cam_statics, levels, num_disp, use_ext,
                 max_reproj, method, dense_subs=subs,
                 dense_sample=dense_sample)
-            for s in range(n)
-        ]
-        return stack_streams(outs)
 
-    return _over_dp(mesh, step)
+        with lanes():
+            return torch.func.vmap(one)(frames, clouds, intens, valids, Js,
+                                        R, t, actkey, poses, points, cand)
+
+    return OverDp(mesh, vstep, actkey_arg=7)
 
 
 def build_multistream_mono(mesh, cam_params, cam_statics, levels=3,
                            zmssd_thr=0.18):
-    """The per-frame monocular step over a batch of B streams.
+    """The per-frame monocular step over a batch of B streams:
+    ``torch.func.vmap`` of one stream's ``mono_step`` over the stream
+    axis, the twin's ``vstep``; on a card one CUDA graph replay per call.
 
     Returns step(imgs (B, H, W), R (B, 3, 3), t (B, 3), ak (B,), poses,
     points (tables with a leading B axis), Lam (B, P, 3, 3), cand (B, C),
     conv_thr (B,), prior_w (B,)) -> MonoStepOut with a leading stream axis
-    on every leaf. With a mesh, every input is split over "dp" and the
-    outputs gathered to the mesh's first device."""
-    from scavislam_tpu_torch.models.mono_step import mono_step
+    on every leaf. With a mesh, every input is split over "dp", each
+    shard's program runs on its device, and the outputs are gathered to
+    the mesh's first device."""
 
-    def step(imgs, R, t, ak, poses, points, Lam, cand, conv, pw):
-        outs = [
-            mono_step(imgs[s], R[s], t[s], ak[s], stream_slice(poses, s),
-                      stream_slice(points, s), Lam[s], cand[s], conv[s],
-                      pw[s], cam_params, cam_statics, levels, 2.0, zmssd_thr)
-            for s in range(imgs.shape[0])
-        ]
-        return stack_streams(outs)
+    def one(img, R, t, ak, poses, points, Lam, cand, conv, pw):
+        return mono_step(img, R, t, ak, poses, points, Lam, cand, conv, pw,
+                         cam_params, cam_statics, levels, 2.0, zmssd_thr)
 
-    return _over_dp(mesh, step)
+    def vstep(imgs, R, t, ak, poses, points, Lam, cand, conv, pw):
+        with lanes():
+            return torch.func.vmap(one)(imgs, R, t, ak, poses, points, Lam,
+                                        cand, conv, pw)
+
+    return OverDp(mesh, vstep, actkey_arg=3)

@@ -12,17 +12,20 @@ Division of labour per tick (B streams, one frame each):
           the B frames                            -> ONE (B, 2, H, W) uint8
                                                      upload (none when the
                                                      frames are on the card)
-  device: ONE batched step (all B streams; on a card ONE batched
-          block-matching call)                    -> chained pose state
+  device: ONE batched step (all B streams; on a card ONE CUDA graph
+          replay of the batched block-matching call
+          and the vmapped step)                   -> chained pose state
   host:   ONE (B, K) packed fetch, consumed `pipeline_depth` ticks later:
           per-stream keyframe policy on each row; a stream that decides a
           keyframe dispatches its own spawn step against its OWN tables,
-          and the batched tables are restacked at the next tick.
+          and the batched tables are restacked at the next tick (only
+          then: the step's graph copies a table only when it is a new
+          tensor, as it copies the active keyframes only when one moved).
 
 With a mesh (parallel/mesh.py) the batched step splits the B streams over
-the mesh's "dp" axis: each shard's B / dp streams run on its device, with
-one batched block-matching call per shard, and the outputs come back to the
-mesh's first device, where the pool's state lives.
+the mesh's "dp" axis: each shard's B / dp streams run on its device, one
+graph replay (one batched block-matching call) per shard, and the outputs
+come back to the mesh's first device, where the pool's state lives.
 
 Each stream's host state is a full StereoFrontend: policy, spawn, epoch
 guard, covisibility and id bookkeeping are the same code as its pipelined
@@ -46,6 +49,7 @@ from scavislam_tpu_torch.models.frontend import (
     Fetch,
     StereoFrontend,
     _to_u8,
+    _upload,
 )
 from scavislam_tpu_torch.models.frontend_step import DENSE_SUBS_BATCHED
 from scavislam_tpu_torch.parallel.multistream import (
@@ -149,6 +153,7 @@ class StreamPool:
         self._points_b = None
         self._cand_np = None
         self._cand_dev = None
+        self._actkey = None  # (host list, (B,) int32 device tensor)
 
     # ------------------------------------------------------------------ #
     def _restack_tables(self):
@@ -166,9 +171,19 @@ class StreamPool:
         if self._cand_np is None or not np.array_equal(
                 self._cand_np, cand_rows):
             self._cand_np = cand_rows.copy()
-            self._cand_dev = torch.as_tensor(cand_rows.astype(np.int32),
-                                             device=self.device)
+            self._cand_dev = _upload(cand_rows.astype(np.int32),
+                                     self.device)
         return self._cand_dev
+
+    def _actkey_device(self):
+        """The streams' active keyframes as one (B,) int32 device tensor,
+        uploaded only when one of them moved (the step's graph then
+        copies it; most ticks it is the tensor copied last time)."""
+        ak = [max(fe.actkey_id, 0) for fe in self.fes]
+        if self._actkey is None or self._actkey[0] != ak:
+            self._actkey = (ak, _upload(np.asarray(ak, np.int32),
+                                        self.device))
+        return self._actkey[1]
 
     def _upload_frames(self, frames):
         """The tick's frames as ONE (B, 2, H, W) uint8 tensor on the pool's
@@ -182,14 +197,14 @@ class StreamPool:
             np.stack([_to_u8(np.asarray(f["left"])),
                       _to_u8(np.asarray(f["right"]))])
             for f in frames])
-        return torch.as_tensor(stacked, device=self.device)
+        return _upload(stacked, self.device)
 
     def _dispatch(self, frames, cand_rows):
         poses_b, points_b = self._restack_tables()
         out = self.step(
             self._upload_frames(frames), *self._prev,
             self._chain[0], self._chain[1],
-            [max(fe.actkey_id, 0) for fe in self.fes], poses_b, points_b,
+            self._actkey_device(), poses_b, points_b,
             self._cand_device(cand_rows),
         )
         self._chain = (out.R_cw, out.t_cw)

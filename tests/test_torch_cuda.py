@@ -12,6 +12,7 @@ This file imports no JAX (the machine with the card has none), so on a card:
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -929,3 +930,67 @@ def test_backend_programs_replay_as_graphs(cuda_device):
     assert outs[0][0] > 0  # pass 1 gated matches
     np.testing.assert_array_equal(outs[1], outs[0])
     np.testing.assert_array_equal(outs[2], outs[0])
+
+
+# -- the multistream steps as one batched program --------------------------- #
+
+def _pool_ticks(n, scenes, device):
+    seqs = [SyntheticSequence(CAM, n_frames=n, planes=p, device=device)
+            for p in scenes]
+    ticks = [[{"frame_id": i, "left": f["left"], "right": f["right"]}
+              for f in (q.frame(i) for q in seqs)] for i in range(n)]
+    return seqs, ticks
+
+
+@pytest.mark.cuda
+def test_stream_pool_replays_one_graph_per_tick(cuda_device):
+    # three streams on the card: the tick's program (prefilter, batched
+    # kernel, vmapped step) captured once at the first tick and replayed at
+    # every other, one batched launch per tick; then, from the state of
+    # the last tick, the replay against the eager vmapped program on the
+    # same inputs: every output torch.equal (the same kernels in the same
+    # order), the eager program run with vmap's per-sample fallback warning
+    # on and every warning raised (the card's own route, the triangular
+    # solves, batches without a fallback)
+    n, B = 8, 3
+    seqs, ticks = _pool_ticks(n, (default_room(), varied_box(1),
+                                  varied_box(2)), cuda_device)
+    pool = StreamPool(CAM, Config(), n_streams=B, device=cuda_device)
+    step = pool.step
+    rec = {}
+
+    def record(*args):
+        rec["args"] = args
+        return step(*args)
+
+    pool.step = record
+    batched = stereo_bm.block_matching_disparity_bm_batched.launches
+    pool.process_first_frames(ticks[0])
+    for tick in ticks[1:]:
+        pool.process_frames(tick)
+    pool.finish()
+    (graph,) = step.graphs
+    assert (graph.captures, graph.replays) == (1, n - 1)
+    assert stereo_bm.block_matching_disparity_bm_batched.launches == batched + n
+    for s in range(B):
+        assert pool.alive[s]
+        traj = pool.trajectories[s]
+        assert len(traj) == n
+        assert _ate([T for _, T in traj],
+                    [seqs[s].poses[i] for i, _ in traj]) < 0.05
+    args = rec["args"]
+    torch.cuda.synchronize()
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            eager = step.program(*args)
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    replayed = step(*args)
+    torch.cuda.synchronize()
+    assert graph.replays == n
+    for name, a, b in zip(eager._fields, replayed, eager):
+        for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                        torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y), name

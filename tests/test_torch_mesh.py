@@ -253,13 +253,19 @@ class TestMultistreamMono:
     def test_sharded_mono_step_matches_per_stream(self):
         """build_multistream_mono over an 8-device mesh with dp = 2 against
         per-stream mono_step calls, stream state from short real mono runs
-        (tests/test_parallel.py's case): packed vectors within 1e-5."""
+        (tests/test_parallel.py's case): each lane within `mono_bars`: 1e-5,
+        or twice the single-stream step's own move under one-ulp moves of
+        its state where that is larger (the vmapped program rounds
+        differently, and the mono LM and depth filter amplify it)."""
+        from test_torch_multistream import hold_mono, mono_bars
+
         from scavislam_tpu_torch.io.synthetic import SyntheticSequence
         from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
         from scavislam_tpu_torch.models.mono_step import mono_step
         from scavislam_tpu_torch.parallel.multistream import (
             build_multistream_mono,
             stack_streams,
+            stream_slice,
         )
 
         cam = interop.camera(130.0, (63.5, 47.5), (128, 96), 0.12)
@@ -287,14 +293,14 @@ class TestMultistreamMono:
                    torch.stack([fe.Lam for fe in fes]), torch.stack(cands),
                    torch.full((B,), fes[0].conv_q_info),
                    torch.full((B,), fes[0].prior_weight))
+        cams = (fes[0]._cam_params, fes[0]._cam_statics)
         for s, fe in enumerate(fes):
-            ref = mono_step(imgs[s], torch.as_tensor(fe._R_cw),
-                            torch.as_tensor(fe._t_cw), max(fe.actkey_id, 0),
-                            fe.poses, fe.points, fe.Lam, cands[s],
-                            fe.conv_q_info, fe.prior_weight, fe._cam_params,
-                            fe._cam_statics, 3, 2.0, 0.18)
-            np.testing.assert_allclose(out.packed[s].numpy(),
-                                       ref.packed.numpy(), atol=1e-5)
+            args = (imgs[s], torch.as_tensor(fe._R_cw),
+                    torch.as_tensor(fe._t_cw), max(fe.actkey_id, 0),
+                    fe.poses, fe.points, fe.Lam, cands[s], fe.conv_q_info,
+                    fe.prior_weight)
+            ref = mono_step(*args, *cams, 3, 2.0, 0.18)
+            hold_mono(stream_slice(out, s), ref, mono_bars(args, *cams))
 
 
 @pytest.mark.slow

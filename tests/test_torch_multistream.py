@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from scavislam_tpu.core.camera import StereoCamera as JCam
 from scavislam_tpu.core.lie import SE3 as JSE3
@@ -34,12 +35,14 @@ from scavislam_tpu_torch.models.frontend_step import (
     DENSE_SUBS_BATCHED,
     frontend_step,
 )
+from scavislam_tpu_torch.models.mono_step import mono_step
 from scavislam_tpu_torch.ops import stereo_bm
 from scavislam_tpu_torch.parallel.multistream import (
     build_multistream_frontend,
     build_multistream_step,
     make_mesh,
     stack_streams,
+    stream_slice,
     tracking_core,
 )
 from scavislam_tpu_torch.parallel.stream_pool import StreamPool
@@ -50,6 +53,17 @@ T_CAM = interop.camera(np.asarray(J_CAM.focal), np.asarray(J_CAM.pp),
 CAM_PARAMS = (195.0, 127.0, 95.0, 0.12)
 B = 2
 CPU = torch.device("cpu")
+# a lane of a batched step against the single-stream step from the same
+# state: each mono leaf within 1e-5 (the packed bar of the per-stream loop
+# the batched program replaced), or, where the single-stream step itself
+# moves a leaf further when its f32 state moves by one ulp, within
+# WITNESS_MARGIN times that move (`rounding_spread`)
+MONO_BAR = 1e-5
+WITNESS_DRAWS = 8
+WITNESS_MARGIN = 2.0
+# mono_step's f32 state (the previous pose, the pose, point and Lambda
+# tables), the arguments `rounding_spread` moves
+MONO_STATE = (1, 2, 4, 5, 6)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -199,7 +213,11 @@ def test_twin_route_matches_jax_per_stream(batch):
 def test_kernel_route_matches_single_stream_method2(batch):
     # on the CPU the kernel route runs the batched kernel's plain version on
     # the binomial-smoothed frames; each stream is then the port's own
-    # single-stream step at stereo method 2, within 1e-6
+    # single-stream step at stereo method 2: R_cw and t_cw within 1e-6,
+    # the packed vector within the batched step's bar, 2e-4 plus 1e-6
+    # relative (the vmapped program rounds differently; measured: packed
+    # 1.9e-5, one f32 ulp of a 146 px coordinate, R_cw 3.0e-8, t_cw
+    # 2.0e-7)
     _, tb = batch
     cam_params, cam_statics = _cams()
     out = _run(tb, "kernel")
@@ -215,7 +233,9 @@ def test_kernel_route_matches_single_stream_method2(batch):
             dense_subs=DENSE_SUBS_BATCHED)
         assert torch.equal(out.disp[s], ref.disp)
         np.testing.assert_allclose(out.packed[s].numpy(), ref.packed.numpy(),
-                                   atol=1e-6)
+                                   atol=2e-4, rtol=1e-6)
+        assert float(torch.abs(out.R_cw[s] - ref.R_cw).max()) <= 1e-6
+        assert float(torch.abs(out.t_cw[s] - ref.t_cw).max()) <= 1e-6
         assert ref.packed[24] > 100
 
 
@@ -239,8 +259,9 @@ def test_mesh_and_bad_route_raise():
 
 def test_kernel_route_over_a_dp_mesh(batch, monkeypatch):
     """build_multistream_frontend over a dp = 2 mesh of CPU devices: one
-    batched block-matching call per shard (one stream each), and the
-    gathered output equal to the unsharded step's."""
+    batched block-matching call per shard (one stream each), the same
+    disparity and next dense state as the unsharded step's, and the packed
+    vector within its bar."""
     from scavislam_tpu_torch.parallel import multistream
 
     _, tb = batch
@@ -263,22 +284,85 @@ def test_kernel_route_over_a_dp_mesh(batch, monkeypatch):
                tb["poses"], tb["points"], tb["cand"])
     assert calls == [1, 1]
     assert torch.equal(out.disp, ref.disp)
-    assert torch.equal(out.packed, ref.packed)
+    # one program over B = 1 streams per shard against one over B = 2:
+    # the vmapped programs round differently (measured: packed 5.9e-5,
+    # t_cw 7.2e-6), held to the batched step's packed bar
+    np.testing.assert_allclose(out.packed.numpy(), ref.packed.numpy(),
+                               atol=2e-4, rtol=1e-6)
     assert torch.equal(out.clouds[0], ref.clouds[0])
+
+
+def one_ulp(x, gen):
+    """`x` with each element moved by -1, 0 or +1 f32 ulp at random."""
+    step = torch.randint(-1, 2, x.shape, generator=gen).to(x.device)
+    up = torch.nextafter(x, torch.full_like(x, float("inf")))
+    down = torch.nextafter(x, torch.full_like(x, float("-inf")))
+    return torch.where(step > 0, up, torch.where(step < 0, down, x))
+
+
+def rounding_spread(single, args, state, leaves, draws=WITNESS_DRAWS):
+    """The single-stream step's own sensitivity to rounding on a state:
+    the largest move of each leaf of ``leaves(single(*args))`` over
+    `draws` calls with every f32 tensor of ``args[i]``, i in `state`,
+    moved by at most one ulp. A lane of a batched program departs from
+    ``single`` by rounding only if it moves no further than this."""
+    gen = torch.Generator().manual_seed(0)
+    base = leaves(single(*args))
+    worst = dict.fromkeys(base, 0.0)
+    for _ in range(draws):
+        moved = list(args)
+        for i in state:
+            moved[i] = pytree.tree_map(
+                lambda x: one_ulp(x, gen) if isinstance(x, torch.Tensor)
+                and x.dtype == torch.float32 else x, args[i])
+        got = leaves(single(*moved))
+        for k in base:
+            worst[k] = max(worst[k], float(torch.abs(got[k] - base[k]).max()))
+    return worst
+
+
+def mono_leaves(out):
+    """The leaves a lane of the batched mono step is held on: the packed
+    head (pose, counts, gates, observations), the packed post-update
+    information, psi and Lambda."""
+    head = 34 + 4 * out.gate.shape[-1]
+    return {"head": out.packed[:head], "info": out.packed[head:],
+            "psi": out.points.psi, "Lam": out.Lam}
+
+
+def mono_bars(args, cam_params, cam_statics):
+    """Each mono leaf's bar on one stream's state (mono_step's arguments
+    `args`): MONO_BAR, or WITNESS_MARGIN times the single-stream step's
+    own move under one-ulp state moves where that is larger."""
+    spread = rounding_spread(
+        lambda *a: mono_step(*a, cam_params, cam_statics, 3, 2.0, 0.18),
+        args, MONO_STATE, mono_leaves)
+    return {k: max(MONO_BAR, WITNESS_MARGIN * v) for k, v in spread.items()}
+
+
+def hold_mono(lane, ref, bars):
+    """A lane of a batched mono step against the step `ref`: the same
+    gates, each leaf within its bar."""
+    assert torch.equal(lane.gate, ref.gate)
+    got, want = mono_leaves(lane), mono_leaves(ref)
+    for k, bar in bars.items():
+        d = float(torch.abs(got[k] - want[k]).max())
+        assert d <= bar, (k, d, bar)
 
 
 def test_multistream_mono_matches_per_stream():
     """build_multistream_mono against per-stream mono_step calls, as
     tests/test_parallel.py's TestMultistreamMono holds the twin: stream
     state from short real mono runs (different step sizes), so the check
-    covers populated point/Lambda tables and live candidate sections. Every
-    leaf of the batched output equal to the per-stream call's (the loop
-    runs the same step), the packed vector within 1e-5."""
+    covers populated point/Lambda tables and live candidate sections. Each
+    lane within `mono_bars` of the per-stream call: the batched program
+    rounds differently, and the mono LM and depth filter amplify that as
+    they amplify a one-ulp move of the step's state
+    (tests/test_torch_multistream_vmap.py)."""
     from scavislam_tpu_torch.io.synthetic import (
         SyntheticSequence as TSeq,
     )
     from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
-    from scavislam_tpu_torch.models.mono_step import mono_step
     from scavislam_tpu_torch.parallel.multistream import (
         build_multistream_mono,
     )
@@ -309,19 +393,17 @@ def test_multistream_mono_matches_per_stream():
         torch.full((B,), fes[0].conv_q_info),
         torch.full((B,), fes[0].prior_weight))
     assert out.packed.shape[0] == B and out.Lam.shape[0] == B
+    bars = []
     for s, fe in enumerate(fes):
-        ref = mono_step(
-            imgs[s], torch.as_tensor(fe._R_cw), torch.as_tensor(fe._t_cw),
-            max(fe.actkey_id, 0), fe.poses, fe.points, fe.Lam, cands[s],
-            fe.conv_q_info, fe.prior_weight, fe._cam_params,
-            fe._cam_statics, 3, 2.0, 0.18)
+        args = (imgs[s], torch.as_tensor(fe._R_cw), torch.as_tensor(fe._t_cw),
+                max(fe.actkey_id, 0), fe.poses, fe.points, fe.Lam, cands[s],
+                fe.conv_q_info, fe.prior_weight)
+        ref = mono_step(*args, fe._cam_params, fe._cam_statics, 3, 2.0, 0.18)
         assert ref.packed[25] >= 15  # the frame tracks
-        np.testing.assert_allclose(out.packed[s].numpy(),
-                                   ref.packed.numpy(), atol=1e-5)
-        assert torch.equal(out.gate[s], ref.gate)
-        assert torch.equal(out.points.psi[s], ref.points.psi)
-    # over a dp = 2 mesh of CPU devices: one stream per shard, the same
-    # result
+        bars.append(mono_bars(args, fe._cam_params, fe._cam_statics))
+        hold_mono(stream_slice(out, s), ref, bars[s])
+    # over a dp = 2 mesh of CPU devices: one stream per shard, each within
+    # the same bars of the unsharded step's lane
     step_m = build_multistream_mono(make_mesh(2, dp=2, devices=[CPU] * 2),
                                     fes[0]._cam_params, fes[0]._cam_statics,
                                     levels=3)
@@ -335,5 +417,5 @@ def test_multistream_mono_matches_per_stream():
         torch.stack([fe.Lam for fe in fes]), torch.stack(cands),
         torch.full((B,), fes[0].conv_q_info),
         torch.full((B,), fes[0].prior_weight))
-    assert torch.equal(out_m.packed, out.packed)
-    assert torch.equal(out_m.Lam, out.Lam)
+    for s in range(B):
+        hold_mono(stream_slice(out_m, s), stream_slice(out, s), bars[s])
