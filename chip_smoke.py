@@ -440,7 +440,7 @@ def _run_system(cam, cfg, dev, frames, threaded, pipelined,
         "chi2": (g.stats["chi2_init"], g.stats["chi2_final"]),
         "counters": dict(sorted(system.backend.counters.items())),
         "adopted": adopted[0], "ate": ate,
-        "split": (np.asarray([x[1:] for x in fe.timing_log]).mean(0) * 1e3
+        "split": (np.asarray([x[1:4] for x in fe.timing_log]).mean(0) * 1e3
                   if fe.timing_log else None),
     }
 
@@ -2811,7 +2811,7 @@ def main():
     fps_p = (N_FRAMES - 1) / (t2 - t1)
     ate_p = _ate([poses[i] for i in sorted(poses)],
                  [frames[i]["T_cw_gt"] for i in sorted(poses)])
-    split = np.asarray([x[1:] for x in fe.timing_log]) * 1000.0
+    split = np.asarray([x[1:4] for x in fe.timing_log]) * 1000.0
     print(f"pipelined: {tracked_p}/{N_FRAMES} frames tracked, {fe.next_kf} "
           f"keyframes, ATE {ate_p:.5f} m, {fps_p:.2f} frames/s over frames "
           f"1..{N_FRAMES - 1} (synchronous phase 4: {fps:.2f}); per frame ms "
@@ -2878,7 +2878,7 @@ def main():
         ates.append(_ate([T for _, T in traj], [gts[s][i] for i, _ in traj])
                     if traj else float("inf"))
     lens = [len(t) for t in pool.trajectories]
-    split = np.asarray(pool.timing_log) * 1000.0
+    split = np.asarray([x[:3] for x in pool.timing_log]) * 1000.0
     print(f"pool: {N_STREAMS} streams x {N_TICKS} ticks, alive {pool.alive}, "
           f"trajectory entries {lens}, keyframes {kfs}, ATE per stream "
           f"{[round(a, 5) for a in ates]} m; {fps_pool:.2f} frames/s "

@@ -60,7 +60,6 @@ they hold device memory for the whole run).
 
 from __future__ import annotations
 
-import time
 import warnings
 from collections import deque
 from dataclasses import dataclass, field
@@ -90,6 +89,7 @@ from scavislam_tpu_torch.models.step_graph import StepGraph
 from scavislam_tpu_torch.ops.descriptors import BOW_COLS, BOW_KEYPOINTS
 from scavislam_tpu_torch.ops.rectify import Rectifier
 from scavislam_tpu_torch.utils.config import Config
+from scavislam_tpu_torch.utils.perfmon import Spans, span_s, spanned
 
 # fixed scatter capacities of the neighborhood adoption: one shape per site
 _POSE_SCATTER_CAP = 128
@@ -211,10 +211,15 @@ class StereoFrontend:
         # (K, 128) BoW vocabulary tensor on this frontend's device: set, the
         # keyframe spawn also computes the place-recognition block
         self.pr_vocab = None
-        # when set to a list, process_frame_pipelined appends one
-        # (frame_id, dispatch_s, fetch_wait_s, consume_s) tuple per frame
+        # when set to a list, process_frame and process_frame_pipelined
+        # append one (frame_id, dispatch_s, fetch_wait_s, consume_s, folded)
+        # tuple per frame: the seconds of the frame's frontend.dispatch, its
+        # frontend.fetch_wait and the rest of its frontend.consume, and what
+        # `spans` recorded since the previous entry (perfmon.Spans.fold:
+        # the spans by name, the synchronizing calls by site)
         self.timing_log = None
-        self._fetch_wait_s = 0.0
+        # host spans and synchronizing calls (a StreamPool hands its own)
+        self.spans = Spans(self)
 
         # host numpy mirrors of point metadata (for policy only)
         self._meta_anchor = np.full(MAX_POINTS, -1, np.int64)
@@ -328,6 +333,24 @@ class StereoFrontend:
         return self._actkey_cache[1]
 
     def _run_step(self, frame, cand_ids):
+        with self.spans.span("frontend.inputs"):
+            args = self._step_inputs(frame, cand_ids)
+        with self.spans.span("step.launch"):
+            out = self._step(*args, dense_subs=self.dense_subs,
+                             dense_sample=self.dense_sample)
+        self._dev_R_cw = out.R_cw
+        self._dev_t_cw = out.t_cw
+        self.prev_pyr = self.last_pyr
+        self.last_pyr = out.pyr
+        self.last_dx, self.last_dy = out.dx, out.dy
+        self.last_disp = out.disp
+        self.last_right = args[0][1]
+        return out
+
+    def _step_inputs(self, frame, cand_ids) -> tuple:
+        """The frame step's positional arguments: the frame's stack on the
+        device (rectified when set), the rolled dense state, the pose
+        chain, the tables and the candidate ids."""
         ext = frame.get("disp")
         use_ext = ext is not None or frame.get("use_gt_disp", False)
         if frame.get("use_gt_disp", False):
@@ -348,16 +371,19 @@ class StereoFrontend:
                 right = torch.zeros_like(left)
             planes = ([_as_f32(left), _as_f32(right), _as_f32(ext)]
                       if use_ext else [_to_u8(left), _to_u8(right)])
-            stacked = (torch.as_tensor(np.stack(planes), device=self.device)
-                       if on_host
-                       else torch.stack([p.to(self.device) for p in planes]))
+            if on_host:
+                self.spans.sync("frame.upload")  # from pageable memory
+                stacked = torch.as_tensor(np.stack(planes),
+                                          device=self.device)
+            else:
+                stacked = torch.stack([p.to(self.device) for p in planes])
         # optional undistort + rectify ahead of the frame step
         stacked = self._rectifier.rectify_stacked(stacked)
         R_cw = (self._dev_R_cw if self._dev_R_cw is not None
                 else _upload_f32(self._R_cw, self.device))
         t_cw = (self._dev_t_cw if self._dev_t_cw is not None
                 else _upload_f32(self._t_cw, self.device))
-        out = self._step(
+        return (
             stacked,
             self._prev_clouds, self._prev_intens, self._prev_valids,
             self._prev_J,
@@ -371,17 +397,7 @@ class StereoFrontend:
             int(self.cfg.ui.stereo_method),
             (int(self.cfg.ui.stereo_iters), int(self.cfg.ui.stereo_levels),
              int(self.cfg.ui.stereo_nr_plane)),
-            dense_subs=self.dense_subs,
-            dense_sample=self.dense_sample,
         )
-        self._dev_R_cw = out.R_cw
-        self._dev_t_cw = out.t_cw
-        self.prev_pyr = self.last_pyr
-        self.last_pyr = out.pyr
-        self.last_dx, self.last_dy = out.dx, out.dy
-        self.last_disp = out.disp
-        self.last_right = stacked[1]
-        return out
 
     def _prefetched(self, frame):
         """A frame's device-resident stack: ordered after its upload on this
@@ -426,7 +442,7 @@ class StereoFrontend:
         self.frame_id = frame.get("frame_id", 0)
         kf_id = self._new_keyframe_id()
         T_np = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
-        self.poses = self.poses.set(kf_id, self._se3(T_np))
+        self._set_keyframe_pose(kf_id, T_np)
         self.pose_np[kf_id] = T_np
         self.actkey_id = kf_id
         self._R_cak = np.eye(3, dtype=np.float32)
@@ -434,8 +450,9 @@ class StereoFrontend:
         self._R_cw = T_np[0].copy()
         self._t_cw = T_np[1].copy()
 
-        new_ids, new_psi, new_lvl, new_uvu, pr_packed = self._spawn(
-            out, kf_id, None)
+        with self.spans.span("frontend.spawn"):
+            new_ids, new_psi, new_lvl, new_uvu, pr_packed = self._spawn(
+                out, kf_id, None)
         self.kf_point_ids[kf_id] = new_ids
         self.covis[kf_id] = {}
         self.keyframe_map[kf_id] = self._kf_entry(out, T_np)
@@ -468,14 +485,39 @@ class StereoFrontend:
 
     def process_frame(self, frame: dict):
         """Track one frame. Returns (success, dropped_new_keyframe)."""
-        self._apply_nb_pending(block=True)  # sync mode: no table lag
-        self.frame_id = frame.get("frame_id", self.frame_id + 1)
-        cand_ids = self._collect_candidates()
-        out = self._run_step(frame, cand_ids)
+        with self.spans.span("frontend.neighborhood"):
+            self._apply_nb_pending(block=True)  # sync mode: no table lag
+        with self.spans.span("frontend.dispatch"):
+            cand_ids, out = self._dispatch(frame)
+        with self.spans.span("frontend.consume"):
+            res = self._track(cand_ids, out)
+        self._log_entry(self.frame_id)
+        return res
 
+    def _dispatch(self, frame: dict):
+        """The frame's candidate ids and its frame step."""
+        self.frame_id = frame.get("frame_id", self.frame_id + 1)
+        with self.spans.span("frontend.candidates"):
+            cand_ids = self._collect_candidates()
+        return cand_ids, self._run_step(frame, cand_ids)
+
+    def _log_entry(self, frame_id):
+        """Append the frame's timing_log entry (when there is a log)."""
+        if self.timing_log is None:
+            return
+        f = self.spans.fold()
+        wait = span_s(f, "frontend.fetch_wait")
+        self.timing_log.append((frame_id, span_s(f, "frontend.dispatch"),
+                                wait, span_s(f, "frontend.consume") - wait,
+                                f))
+
+    def _track(self, cand_ids, out: FrontendStepOut):
+        """The synchronous policy on the frame just stepped."""
         # ---- the one host fetch per frame
         C = CAND_CAP
-        pk = out.packed.cpu().numpy()
+        self.spans.sync("frame.read")
+        with self.spans.span("frontend.fetch_wait"):
+            pk = out.packed.cpu().numpy()
         R_cw = pk[0:9].reshape(3, 3)
         t_cw = pk[9:12]
         R_cak = pk[12:21].reshape(3, 3)
@@ -504,7 +546,8 @@ class StereoFrontend:
         if not switched and self._shall_drop_keyframe(
             quad_counts, float(t_norm), float(mean_track_len)
         ):
-            self._add_new_keyframe(out)
+            with self.spans.span("frontend.spawn"):
+                self._add_new_keyframe(out)
             dropped = True
 
         self._roll(out)
@@ -525,29 +568,21 @@ class StereoFrontend:
 
         Returns (success, dropped, consumed_frame_id) for the consumed frame,
         or None while the pipeline is still filling."""
-        tlog = self.timing_log
-        t_a = time.perf_counter() if tlog is not None else 0.0
-        self._apply_nb_pending()
-        self.frame_id = frame.get("frame_id", self.frame_id + 1)
-        cand_ids = self._collect_candidates()
-        out = self._run_step(frame, cand_ids)
-        self._pending.append([self.frame_id, cand_ids, out, Fetch(out.packed),
-                              None, None, self._kf_epoch])
-        self._roll(out)
-        if tlog is not None:
-            t_b = time.perf_counter()
+        with self.spans.span("frontend.neighborhood"):
+            self._apply_nb_pending()
+        with self.spans.span("frontend.dispatch"):
+            cand_ids, out = self._dispatch(frame)
+            self._pending.append([self.frame_id, cand_ids, out,
+                                  Fetch(out.packed), None, None,
+                                  self._kf_epoch])
+            self._roll(out)
         if len(self._pending) <= self._effective_depth():
-            if tlog is not None:
-                tlog.append((self.frame_id, t_b - t_a, 0.0, 0.0))
+            self._log_entry(self.frame_id)
             return None
         entry = self._pending.popleft()
         fid = entry[0]
-        self._fetch_wait_s = 0.0
         success, dropped = self._consume(*entry[1:])
-        if tlog is not None:
-            t_c = time.perf_counter()
-            tlog.append((fid, t_b - t_a, self._fetch_wait_s,
-                         t_c - t_b - self._fetch_wait_s))
+        self._log_entry(fid)
         return success, dropped, fid
 
     def flush_pipeline(self):
@@ -629,6 +664,7 @@ class StereoFrontend:
             return out, T_np, tracked
         return None
 
+    @spanned("frontend.consume")
     def _consume(self, cand_ids, out: FrontendStepOut, fut=None,
                  corr_R=None, corr_t=None, epoch=None):
         """The host policy on one fetched frame (pipelined mode): pose
@@ -644,15 +680,15 @@ class StereoFrontend:
             self._pending_spawn = None
             self._finalize_keyframe(rec, pkt_args)
             spawn_landed = True
-        if fut is not None:
-            if self.timing_log is not None and not fut.done():
-                t_w = time.perf_counter()
-                pk = fut.result()
-                self._fetch_wait_s = time.perf_counter() - t_w
-            else:
-                pk = fut.result()
-        else:
+        if fut is None:
+            self.spans.sync("frame.read")
             pk = out.packed.cpu().numpy()
+        elif fut.done():
+            pk = fut.result()
+        else:
+            self.spans.sync("frame.fetch")
+            with self.spans.span("frontend.fetch_wait"):
+                pk = fut.result()
         R_cw = pk[0:9].reshape(3, 3)
         t_cw = pk[9:12]
         if corr_R is not None:
@@ -691,7 +727,8 @@ class StereoFrontend:
                 self._tracked_obs = obs_all[gate]
                 self._tracked_levels = self._meta_level[
                     np.clip(cand_ids, 0, MAX_POINTS - 1)][gate]
-                self._add_new_keyframe(out, defer=True)
+                with self.spans.span("frontend.spawn"):
+                    self._add_new_keyframe(out, defer=True)
                 self._rescue_pending = True
                 return True, spawn_landed
             return False, False
@@ -728,12 +765,13 @@ class StereoFrontend:
             # when one qualifies
             if self.per_mon is not None:
                 self.per_mon.start("drop keyframe")
-            src = self._freshest_spawn_source()
-            if src is not None:
-                self._add_new_keyframe(src[0], defer=True,
-                                       T_np=src[1], tracked=src[2])
-            else:
-                self._add_new_keyframe(out, defer=True)
+            with self.spans.span("frontend.spawn"):
+                src = self._freshest_spawn_source()
+                if src is not None:
+                    self._add_new_keyframe(src[0], defer=True,
+                                           T_np=src[1], tracked=src[2])
+                else:
+                    self._add_new_keyframe(out, defer=True)
             if self.per_mon is not None:
                 self.per_mon.stop("drop keyframe")
         return True, spawn_landed
@@ -816,11 +854,14 @@ class StereoFrontend:
         self.next_kf += 1
         return kf
 
-    def _se3(self, T_np) -> SE3:
-        return SE3(torch.as_tensor(T_np[0], dtype=torch.float32,
-                                   device=self.device),
-                   torch.as_tensor(T_np[1], dtype=torch.float32,
-                                   device=self.device))
+    def _set_keyframe_pose(self, kf_id: int, T_np):
+        """Write a keyframe's pose into the device pose table: its R and t
+        go up from pageable memory, and the valid flag's write is a third
+        synchronizing copy."""
+        self.spans.sync("keyframe.pose", 3)
+        self.poses = self.poses.set(kf_id, SE3(
+            torch.as_tensor(T_np[0], dtype=torch.float32, device=self.device),
+            torch.as_tensor(T_np[1], dtype=torch.float32, device=self.device)))
 
     def _spawn_dispatch(self, out: FrontendStepOut, kf_id: int, tracked_obs):
         """Run the spawn step + host id allocation; the payload's fetch is
@@ -845,6 +886,8 @@ class StereoFrontend:
         packed_in[3 * TRACKED_CAP: 3 * TRACKED_CAP + self.levels] = starts
         packed_in[3 * TRACKED_CAP + self.levels] = kf_id
 
+        # the packed upload and the patch offsets, from pageable memory
+        self.spans.sync("spawn.upload", 2)
         self.points, payloads = spawn_points_step_packed(
             out.pyr, out.disp, packed_in, self.points,
             self._cam_params, self._cam_statics,
@@ -863,6 +906,8 @@ class StereoFrontend:
         """Read the spawn payload's fetch: exact per-slot validity. Returns
         (ids, psi, levels, uvu0, pr_packed); pr_packed is the keyframe's BoW
         block, or None without a pr_vocab."""
+        if not rec["fut"].done():
+            self.spans.sync("spawn.fetch")
         payloads = rec["fut"].result()
         caps, starts = rec["caps"], rec["starts"]
         all_ids, all_psi, all_lvl, all_uvu = [], [], [], []
@@ -915,7 +960,7 @@ class StereoFrontend:
         tracked_ids, tracked_obs, tracked_levels = tracked
         self._kf_epoch += 1
         kf_id = self._new_keyframe_id()
-        self.poses = self.poses.set(kf_id, self._se3(T_np))
+        self._set_keyframe_pose(kf_id, T_np)
         self.pose_np[kf_id] = T_np
 
         anch = self._meta_anchor[np.clip(tracked_ids, 0, MAX_POINTS - 1)]
@@ -954,6 +999,7 @@ class StereoFrontend:
         self._t_cak = (self._t_cw - self._R_cak @ T_np[1]).astype(np.float32)
         self._cand_np = None
 
+    @spanned("frontend.spawn_finalize")
     def _finalize_keyframe(self, rec, pkt_args) -> AddToOptimizer:
         """Consume the spawn payload, build + queue the backend packet."""
         new_ids, new_psi, new_lvl, new_uvu, pr_packed = \
@@ -999,6 +1045,7 @@ class StereoFrontend:
         return pkts
 
     # -- backend feedback --------------------------------------------------- #
+    @spanned("frontend.neighborhood")
     def apply_neighborhood(self, nb):
         """Adopt a backend-optimized neighborhood (stereo_slam.cpp:694-703:
         adopt only if it contains the current actkey, or shares a covis link

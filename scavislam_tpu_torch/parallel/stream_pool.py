@@ -36,7 +36,6 @@ keeps running (its row computes garbage that nobody reads).
 
 from __future__ import annotations
 
-import time
 from collections import deque
 
 import numpy as np
@@ -57,6 +56,7 @@ from scavislam_tpu_torch.parallel.multistream import (
     stack_streams,
 )
 from scavislam_tpu_torch.utils.config import Config
+from scavislam_tpu_torch.utils.perfmon import Spans, span_s
 
 
 class _Row:
@@ -127,10 +127,13 @@ class StreamPool:
                        else resolve_device(device))
         self.fes = [StereoFrontend(cam, self.cfg, device=self.device)
                     for _ in range(self.B)]
+        # host spans and synchronizing calls of the pool and its streams
+        self.spans = Spans(self)
         # pool streams track at the reference's own CPU density (every 4th
         # pixel at levels 0-1); the rolled state must match the step's
         for fe in self.fes:
             fe.dense_subs = DENSE_SUBS_BATCHED
+            fe.spans = self.spans
         fe0 = self.fes[0]
         self.step = build_multistream_frontend(
             mesh, fe0._cam_params, fe0._cam_statics, levels=fe0.levels,
@@ -142,7 +145,11 @@ class StreamPool:
         self.alive = [True] * self.B
         self.pipeline_depth = int(pipeline_depth)
         # when set to a list, process_frames appends one (dispatch_s,
-        # fetch_wait_s, consume_s) tuple per tick
+        # fetch_wait_s, consume_s, folded) tuple per tick: the seconds of
+        # the tick's pool.dispatch, its pool.fetch_wait and the rest of its
+        # pool.consume, and what `spans` recorded since the previous entry
+        # (perfmon.Spans.fold; the streams' frontend.* spans summed by
+        # name), with "streams": each stream's frontend.consume seconds
         self.timing_log = None
         self._pending = deque()
         # batched device state
@@ -200,13 +207,14 @@ class StreamPool:
         return _upload(stacked, self.device)
 
     def _dispatch(self, frames, cand_rows):
-        poses_b, points_b = self._restack_tables()
-        out = self.step(
-            self._upload_frames(frames), *self._prev,
-            self._chain[0], self._chain[1],
-            self._actkey_device(), poses_b, points_b,
-            self._cand_device(cand_rows),
-        )
+        with self.spans.span("pool.inputs"):
+            poses_b, points_b = self._restack_tables()
+            args = (self._upload_frames(frames), *self._prev,
+                    self._chain[0], self._chain[1],
+                    self._actkey_device(), poses_b, points_b,
+                    self._cand_device(cand_rows))
+        with self.spans.span("step.launch"):
+            out = self.step(*args)
         self._chain = (out.R_cw, out.t_cw)
         self._prev = (out.clouds, out.intens, out.cloud_valids, out.cloud_J)
         return out
@@ -243,31 +251,42 @@ class StreamPool:
         per-stream (success, dropped, frame_id) list."""
         if len(frames) != self.B:
             raise ValueError(f"{len(frames)} frames for {self.B} streams")
-        tlog = self.timing_log
-        t_a = time.perf_counter()
-        cand_rows = np.stack([fe._collect_candidates() for fe in self.fes])
-        out = self._dispatch(frames, cand_rows)
-        self._pending.append((
-            [f.get("frame_id") for f in frames], cand_rows, out,
-            Fetch(out.packed), [fe._kf_epoch for fe in self.fes],
-        ))
-        t_b = time.perf_counter()
+        with self.spans.span("pool.dispatch"):
+            with self.spans.span("pool.candidates"):
+                cand_rows = np.stack([fe._collect_candidates()
+                                      for fe in self.fes])
+            out = self._dispatch(frames, cand_rows)
+            self._pending.append((
+                [f.get("frame_id") for f in frames], cand_rows, out,
+                Fetch(out.packed), [fe._kf_epoch for fe in self.fes],
+            ))
         if len(self._pending) <= max(1, self.pipeline_depth):
-            if tlog is not None:
-                tlog.append((t_b - t_a, 0.0, 0.0))
+            self._log_entry([0.0] * self.B)
             return None
-        results, wait_s = self._consume_oldest()
-        if tlog is not None:
-            tlog.append((t_b - t_a, wait_s,
-                         time.perf_counter() - t_b - wait_s))
+        with self.spans.span("pool.consume"):
+            results, stream_s = self._consume_oldest()
+        self._log_entry(stream_s)
         return results
 
+    def _log_entry(self, stream_s):
+        """Append the tick's timing_log entry (when there is a log)."""
+        if self.timing_log is None:
+            return
+        f = self.spans.fold()
+        f["streams"] = stream_s
+        wait = span_s(f, "pool.fetch_wait")
+        self.timing_log.append((span_s(f, "pool.dispatch"), wait,
+                                span_s(f, "pool.consume") - wait, f))
+
     def _consume_oldest(self):
+        """The oldest tick's policy: (per-stream results, each stream's
+        frontend.consume seconds, 0 where not recorded)."""
         fids, cand_rows, out, fut, epochs = self._pending.popleft()
-        t_w = time.perf_counter()
-        pk = fut.result()  # (B, K): the ONE packed fetch for all streams
-        wait_s = time.perf_counter() - t_w
-        results = []
+        if not fut.done():
+            self.spans.sync("tick.fetch")
+        with self.spans.span("pool.fetch_wait"):
+            pk = fut.result()  # (B, K): the ONE packed fetch for all streams
+        results, stream_s = [], [0.0] * self.B
         for s, fe in enumerate(self.fes):
             if not self.alive[s]:
                 results.append((False, False, fids[s]))
@@ -276,12 +295,14 @@ class StreamPool:
                 cand_rows[s], _StreamView(out, s), fut=_Row(pk[s]),
                 epoch=epochs[s],
             )
+            if self.timing_log is not None:
+                stream_s[s] = self.spans.last_s
             if ok:
                 self.trajectories[s].append((fids[s], fe._world_pose()))
             else:
                 self.alive[s] = False
             results.append((ok, dropped, fids[s]))
-        return results, wait_s
+        return results, stream_s
 
     def finish(self):
         """Drain the pipeline and finalize any pending keyframe spawns."""

@@ -237,10 +237,16 @@ class SlamSystem:
                 # deterministic unthreaded semantics: BLOCK on in-flight
                 # async work (registration fetch, solve fetch) instead of
                 # letting it land on a later frame
+                spans = self.frontend.spans
                 if self.backend._pending_reg is not None:
-                    self.backend._pending_reg[2].result()
+                    fut = self.backend._pending_reg[2]
+                    if not fut.done():
+                        spans.sync("drain.registration")
+                    fut.result()
                     continue
                 if self.backend.graph.solve_pending():
+                    if not self.backend.graph.solve_ready():
+                        spans.sync("drain.solve")
                     self.backend.graph.finish_pending()
                     continue
                 break

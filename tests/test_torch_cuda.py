@@ -11,6 +11,7 @@ This file imports no JAX (the machine with the card has none), so on a card:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import collections
 import dataclasses
 import warnings
 
@@ -217,6 +218,113 @@ def test_stream_pool_on_card(cuda_device):
         assert len(traj) == n
         assert _ate([T for _, T in traj],
                     [seqs[s].poses[i] for i, _ in traj]) < 0.05
+
+
+def _warned_vs_counted(spans, run):
+    """Run `run` under sync debug mode "warn", holding each synchronizing
+    call the card sees to a site `spans` counted: a counted site lets the
+    next n warnings through, and a warning with none left is uncounted. A
+    fetch's wait on its event lets none through (cudaEventSynchronize is
+    not among the calls the mode warns of). Returns (uncounted warnings
+    by source line, warnings, counted sites but fetches)."""
+    allowed, warned, uncounted = [0], [0], collections.Counter()
+    count, before = spans.sync, collections.Counter(spans.syncs)
+
+    def sync(site, n=1):
+        allowed[0] = 0 if site.endswith(".fetch") else n
+        count(site, n)
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        warned[0] += 1
+        if allowed[0] > 0:
+            allowed[0] -= 1
+        else:
+            uncounted[f"{filename.rsplit('/', 1)[-1]}:{lineno}"] += 1
+
+    spans.sync = sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del spans.sync
+    counted = sum(n for site, n in (spans.syncs - before).items()
+                  if not site.endswith(".fetch"))
+    return dict(uncounted), warned[0], counted
+
+
+@pytest.mark.cuda
+def test_pool_syncs_are_counted_where_the_card_synchronizes(cuda_device):
+    # 12 ticks of a 2-stream pool at Config()'s 512x384 camera, depth 2,
+    # keyframes spawning: every call that synchronizes comes from a site
+    # the pool's `syncs` counts, and each counted upload synchronizes
+    cfg = Config()
+    cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
+                              (cfg.cam.width, cfg.cam.height),
+                              cfg.cam.baseline)
+    seqs = [SyntheticSequence(cam, n_frames=13, kind="wander", planes=p,
+                              step=0.06, device=cuda_device)
+            for p in (closed_box(), varied_box(1))]
+    ticks = [[{"frame_id": i, "left": f["left"], "right": f["right"]}
+              for f in (q.frame(i) for q in seqs)] for i in range(13)]
+    pool = StreamPool(cam, cfg, n_streams=2, pipeline_depth=2,
+                      device=cuda_device)
+    pool.process_first_frames(ticks[0])
+    kf0 = sum(pool.keyframe_counts())
+
+    def run():
+        for tick in ticks[1:]:
+            pool.process_frames(tick)
+
+    uncounted, warned, counted = _warned_vs_counted(pool.spans, run)
+    pool.finish()
+    assert uncounted == {}
+    assert sum(pool.keyframe_counts()) > kf0  # spawns ran
+    assert warned == counted > 0
+
+
+@pytest.mark.cuda
+def test_frontend_syncs_are_counted_where_the_card_synchronizes(
+        cuda_device):
+    # the single stream as the nc_stereo cell runs it: device-resident
+    # uint8 stacks, depth 3, the place-recognition block in each spawn
+    from scavislam_tpu_torch.models.frontend import _to_u8
+    from scavislam_tpu_torch.models.placerec import default_vocabulary
+    cfg = Config()
+    cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
+                              (cfg.cam.width, cfg.cam.height),
+                              cfg.cam.baseline)
+    seq = SyntheticSequence(cam, n_frames=16, kind="wander",
+                            planes=closed_box(), step=0.06,
+                            device=cuda_device)
+    frames = []
+    for i in range(16):
+        f = seq.frame(i)
+        st = torch.stack([_to_u8(f["left"]), _to_u8(f["right"])])
+        frames.append({"frame_id": i, "left": st[0], "right": st[1],
+                       "stacked_dev": st})
+    fe = StereoFrontend(cam, cfg, device=cuda_device)
+    fe.pipeline_depth = 3
+    fe.pr_vocab = torch.as_tensor(default_vocabulary(), device=cuda_device)
+    fe.process_first_frame(frames[0])
+    kf0 = fe.next_kf
+
+    def run():
+        for f in frames[1:]:
+            r = fe.process_frame_pipelined(f)
+            assert r is None or r[0], f["frame_id"]
+        fe.flush_pipeline()
+
+    uncounted, warned, counted = _warned_vs_counted(fe.spans, run)
+    assert uncounted == {}
+    assert fe.next_kf > kf0
+    assert warned == counted > 0
 
 
 def _ba_problem(device, seed=11, P=8, L=128, O=1024, E=16):

@@ -16,6 +16,7 @@ from concurrent.futures import Future
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from scavislam_tpu.core.camera import StereoCamera as JCam
 from scavislam_tpu.io.synthetic import SyntheticSequence
@@ -24,6 +25,7 @@ from scavislam_tpu.utils.config import Config as JConfig
 from scavislam_tpu_torch import interop
 from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.frontend import StereoFrontend as TFrontend
+from scavislam_tpu_torch.utils import perfmon
 from scavislam_tpu_torch.utils.config import Config as TConfig
 
 J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
@@ -76,14 +78,21 @@ def _position(T):
     return -R.T @ t
 
 
-def _run_pipelined(fe, frames):
+def _run_pipelined(fe, frames, traced=None):
     """process_first_frame, process_frame_pipelined, flush_pipeline: the
     consumed frame ids in order, each consumed frame's world pose, and the
-    (frame id, keyframe id) of each packet that landed."""
+    (frame id, keyframe id) of each packet that landed. With a set
+    `traced`, the last frame runs under the profiler, and the set takes
+    the names of its events."""
     fe.process_first_frame(frames[0])
     consumed, poses, packets = [0], {0: fe._world_pose()}, []
     for f in frames[1:]:
-        r = fe.process_frame_pipelined(dict(f))
+        if traced is not None and f is frames[-1]:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                r = fe.process_frame_pipelined(dict(f))
+            traced.update(e.name for e in prof.events())
+        else:
+            r = fe.process_frame_pipelined(dict(f))
         if r is None:
             continue
         ok, dropped, fid = r
@@ -102,7 +111,20 @@ def _run_pipelined(fe, frames):
     return consumed, poses, packets
 
 
-def test_pipelined_vo_matches_jax(frames):
+@pytest.fixture(scope="module")
+def port_run(frames):
+    """The port's pipelined run at method 1, with timing_log on and its
+    last frame under the profiler: (frontend, consumed ids, poses,
+    packets, the profiled frame's event names)."""
+    ft = TFrontend(T_CAM, _cfg(TConfig, 1), device=CPU)
+    ft.pipeline_depth = 2
+    ft.timing_log = []
+    traced = set()
+    ct, pt, kt = _run_pipelined(ft, frames, traced)
+    return ft, ct, pt, kt, traced
+
+
+def test_pipelined_vo_matches_jax(frames, port_run):
     # depth 2 over the 8-frame forward arc: the same frames consumed, the
     # same keyframes (ids, count, the consume at which each packet landed),
     # camera positions within 1e-3 m frame by frame and keyframe positions
@@ -111,9 +133,7 @@ def test_pipelined_vo_matches_jax(frames):
     fj._fetch_pool = _InlineExecutor()
     fj.pipeline_depth = 2
     cj, pj, kj = _run_pipelined(fj, frames)
-    ft = TFrontend(T_CAM, _cfg(TConfig, 1), device=CPU)
-    ft.pipeline_depth = 2
-    ct, pt, kt = _run_pipelined(ft, frames)
+    ft, ct, pt, kt, _ = port_run
     assert ct == cj == list(range(N_FRAMES))
     assert kt == kj
     assert ft.next_kf == fj.next_kf >= 2  # a mid-run deferred spawn ran
@@ -127,10 +147,16 @@ def test_pipelined_vo_matches_jax(frames):
         assert np.linalg.norm(_position(Tt) - _position(Tj)) < 1e-3, k
 
 
-def test_pipelined_matches_sync(frames):
+def test_pipelined_matches_sync(frames, monkeypatch):
     # the port's pipelined run tracks the same trajectory as its synchronous
     # run at the default stereo method (tests/test_frontend_vo.py:81-105:
-    # every pose within 5e-3 in the SE3 log)
+    # every pose within 5e-3 in the SE3 log). Both run with timing_log
+    # None: no span reads the clock or enters record_function, no entry
+    clock_reads = []
+    monkeypatch.setattr(perfmon, "perf_counter",
+                        lambda: clock_reads.append(1) or 0.0)
+    monkeypatch.setattr(perfmon, "record_function",
+                        lambda name: clock_reads.append(name))
     sync = TFrontend(T_CAM, TConfig(), device=CPU)
     sync.process_first_frame(frames[0])
     ps = {0: sync._world_pose()}
@@ -139,10 +165,70 @@ def test_pipelined_matches_sync(frames):
         ps[f["frame_id"]] = sync._world_pose()
     pipe = TFrontend(T_CAM, TConfig(), device=CPU)
     _, pp, _ = _run_pipelined(pipe, frames)
+    assert clock_reads == []
+    assert sync.timing_log is None and pipe.timing_log is None
+    # the counter counts with the switch off: a host frame's upload each
+    assert sync.spans.syncs["frame.upload"] == N_FRAMES
     assert len(set(ps) & set(pp)) >= 6
     for fid in set(ps) & set(pp):
         d = (PoseRT.from_any(ps[fid]) @ PoseRT.from_any(pp[fid]).inverse()).log()
         assert float(d.abs().max()) < 5e-3, (fid, d)
+
+
+def _assert_partition(folded, roots):
+    """Each span within its parent (self time >= 0), and the roots' totals
+    the sum of every span's self time."""
+    spans = folded["spans"]
+    for name, (total, own, n) in spans.items():
+        assert n >= 1 and -1e-9 <= own <= total + 1e-9, name
+    assert sum(own for _, own, _ in spans.values()) == pytest.approx(
+        sum(spans[r][0] for r in roots if r in spans), rel=1e-9, abs=1e-12)
+
+
+def test_frame_spans_partition_the_frame(port_run):
+    ft, consumed, *_ = port_run
+    log = ft.timing_log
+    # one entry per process_frame_pipelined call, the dispatched frame's
+    # while the pipeline fills, then the consumed frame's; none at the flush
+    assert [x[0] for x in log] == [1, 2] + consumed[1:N_FRAMES - 2]
+    for fid, dispatch, wait, consume, f in log[1:]:
+        sp = f["spans"]
+        assert set(sp) <= {"frontend.neighborhood", "frontend.dispatch",
+                           "frontend.candidates", "frontend.inputs",
+                           "step.launch", "frontend.consume",
+                           "frontend.fetch_wait", "frontend.spawn",
+                           "frontend.spawn_finalize"}
+        _assert_partition(f, ("frontend.neighborhood", "frontend.dispatch",
+                              "frontend.consume"))
+        assert dispatch == sp["frontend.dispatch"][0]
+        assert wait == 0.0  # a CPU fetch is never pending
+        assert consume == sp.get("frontend.consume", (0.0,))[0]
+        for name in ("frontend.candidates", "frontend.inputs",
+                     "step.launch"):
+            assert sp[name][2] == 1
+    # the first entry also holds process_first_frame's spans
+    assert log[0][-1]["spans"]["step.launch"][2] == 2
+
+
+def test_frame_syncs_fixed_but_on_spawn_frames(port_run):
+    # a host frame's upload every frame; a spawn's 3 pose copies and 2
+    # spawn uploads more (the first entry holds process_first_frame's frame and
+    # keyframe too)
+    ft, *_ = port_run
+    assert ft.neighborhood is None  # no backend: no adoption
+    plain = []
+    for i, (*_, f) in enumerate(ft.timing_log):
+        spawns = f["spans"].get("frontend.spawn", (0, 0, 0))[2]
+        frames_in = 2 if i == 0 else 1
+        assert f["syncs"]["frame.upload"] == frames_in
+        assert sum(f["syncs"].values()) == frames_in + 5 * spawns
+        plain.append(spawns == 0)
+    assert sum(plain[1:]) >= 3 and not all(plain[1:])  # a mid-run spawn
+
+
+def test_frame_spans_on_the_profilers_clock(port_run):
+    *_, traced = port_run
+    assert {"frontend.dispatch", "step.launch", "frontend.consume"} <= traced
 
 
 class TestEffectiveDepth:

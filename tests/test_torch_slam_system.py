@@ -119,9 +119,9 @@ def _systems(frames, pipelined, loop_closure=False):
     kw = dict(threaded=False, enable_loop_closure=loop_closure,
               pipelined=pipelined, pipeline_depth=2 if pipelined else None)
     js = _run(jss.SlamSystem(J_CAM, _cfg(JConfig), **kw), frames)
-    ts = _run(tss.SlamSystem(T_CAM, _cfg(TConfig), device="cpu", **kw),
-              frames)
-    return js, ts
+    ts = tss.SlamSystem(T_CAM, _cfg(TConfig), device="cpu", **kw)
+    ts.frontend.timing_log = []  # the spans change nothing of the run
+    return js, _run(ts, frames)
 
 
 @pytest.fixture(scope="module")
@@ -185,6 +185,37 @@ def test_pipelined_run_matches_jax(pipe_runs, frames):
     # depth 2, the backend answering queries at the newest inserted
     # ancestor: the same numbers as the synchronous parity test
     _assert_same_run(*pipe_runs, frames)
+
+
+@pytest.mark.parametrize("runs", ["sync_runs", "pipe_runs"])
+def test_frame_entries_hold_the_adoption_before_them(runs, request):
+    # SlamSystem adopts the backend's neighborhood before the frame's
+    # dispatch: its span folds into that frame's entry, beside the
+    # frame's own frontend.neighborhood (the pending scatter); each entry
+    # is partitioned by its spans and its fields are their totals
+    _, ts = request.getfixturevalue(runs)
+    log = ts.frontend.timing_log
+    assert len(log) == N_FRAMES - 1  # one entry per frame after the first
+    adoptions = 0
+    for fid, dispatch, wait, consume, f in log[1:]:
+        sp = f["spans"]
+        adoptions += sp["frontend.neighborhood"][2] - 1
+        own = sum(o for _, o, _ in sp.values())
+        roots = sum(sp[r][0] for r in ("frontend.neighborhood",
+                                       "frontend.dispatch",
+                                       "frontend.consume") if r in sp)
+        assert own == pytest.approx(roots, rel=1e-9)
+        assert min(o for _, o, _ in sp.values()) >= -1e-9
+        assert dispatch == sp["frontend.dispatch"][0]
+        assert wait == sp.get("frontend.fetch_wait", (0.0,))[0]
+        assert consume == pytest.approx(
+            sp.get("frontend.consume", (0.0,))[0] - wait)
+        # the CPU's fetches and the drain's waits are never pending
+        assert set(f["syncs"]) <= {"frame.upload", "frame.read",
+                                   "keyframe.pose", "spawn.upload"}
+    assert adoptions >= 1
+    if runs == "sync_runs":  # the packed read is the synchronous wait
+        assert all(x[-1]["syncs"]["frame.read"] == 1 for x in log)
 
 
 def test_ate_rmse_aligned_matches_jax(sync_runs, frames):

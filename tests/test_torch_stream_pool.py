@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from scavislam_tpu.core.camera import StereoCamera as JCam
 from scavislam_tpu.io import synthetic as jsyn
@@ -21,6 +22,7 @@ from scavislam_tpu_torch.io.synthetic import (
 from scavislam_tpu_torch.models.frontend_step import DENSE_SUBS_BATCHED
 from scavislam_tpu_torch.ops import stereo_bm
 from scavislam_tpu_torch.parallel.stream_pool import StreamPool
+from scavislam_tpu_torch.utils import perfmon
 from scavislam_tpu_torch.utils.config import Config
 
 J_CAM = JCam.create(195.0, (127.0, 95.0), (256, 192), 0.12)
@@ -66,16 +68,32 @@ def pool_run():
     pool = StreamPool(T_CAM, cfg, n_streams=B, pipeline_depth=2,
                       device=CPU)
     pool.timing_log = []
-    first = pool.process_first_frames(ticks[0])
-    results = [pool.process_frames(t) for t in ticks[1:]]
+    # the last tick runs under the profiler; record_function is counted
+    entered = []
+
+    def counting(name):
+        entered.append(name)
+        return real_rf(name)
+
+    real_rf = perfmon.record_function
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(perfmon, "record_function", counting)
+        first = pool.process_first_frames(ticks[0])
+        results = [pool.process_frames(t) for t in ticks[1:-1]]
+        unprofiled = list(entered)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            results.append(pool.process_frames(ticks[-1]))
+        traced = {e.name for e in prof.events()}
     results += pool.finish()
     launches = (stereo_bm.block_matching_disparity_bm_batched.launches - batched,
                 stereo_bm.block_matching_disparity_bm.launches - single)
-    return pool, seqs, first, results, launches
+    spans = {"unprofiled": unprofiled, "entered": entered[len(unprofiled):],
+             "traced": traced}
+    return pool, seqs, first, results, launches, spans
 
 
 def test_two_streams_end_to_end(pool_run):
-    pool, seqs, first, results, launches = pool_run
+    pool, seqs, first, results, launches, _ = pool_run
     assert [p.kf_id for p in first] == [0] * B
     for s in range(B):
         assert pool.alive[s], f"stream {s} lost tracking"
@@ -102,7 +120,7 @@ def test_two_streams_end_to_end(pool_run):
 
 
 def test_packets_and_keyframe_counts(pool_run):
-    pool, _, _, _, _ = pool_run
+    pool, _, _, _, _, _ = pool_run
     pkts = pool.take_ready_packets()
     counts = pool.keyframe_counts()
     # every mid-run keyframe's packet landed by finish(); the first
@@ -113,6 +131,65 @@ def test_packets_and_keyframe_counts(pool_run):
         assert kf_ids == list(range(1, counts[s]))
         assert all(len(p.new_point_ids) > 0 for t, p in pkts if t == s)
     assert pool.take_ready_packets() == []
+
+
+def _assert_partition(folded, roots):
+    """Each span within its parent (self time >= 0), and the roots' totals
+    the sum of every span's self time."""
+    spans = folded["spans"]
+    for name, (total, own, n) in spans.items():
+        assert n >= 1 and -1e-9 <= own <= total + 1e-9, name
+    assert sum(own for _, own, _ in spans.values()) == pytest.approx(
+        sum(spans[r][0] for r in roots if r in spans), rel=1e-9, abs=1e-12)
+
+
+def test_tick_spans_partition_the_tick(pool_run):
+    pool, _, _, _, _, _ = pool_run
+    log = pool.timing_log
+    for dispatch, wait, consume, f in log[1:]:
+        sp = f["spans"]
+        assert set(sp) <= {"pool.dispatch", "pool.candidates", "pool.inputs",
+                           "step.launch", "pool.consume", "pool.fetch_wait",
+                           "frontend.consume", "frontend.spawn",
+                           "frontend.spawn_finalize"}
+        _assert_partition(f, ("pool.dispatch", "pool.consume"))
+        # the fields are the spans' totals
+        assert dispatch == sp["pool.dispatch"][0]
+        assert sp["pool.candidates"][2] == sp["step.launch"][2] == 1
+        if "pool.consume" in sp:
+            assert wait == sp["pool.fetch_wait"][0]
+            assert consume == pytest.approx(sp["pool.consume"][0] - wait)
+            # each stream's consume, summed by name
+            assert sp["frontend.consume"][2] == B
+            assert sum(f["streams"]) == pytest.approx(
+                sp["frontend.consume"][0])
+        else:  # the pipeline filling
+            assert (wait, consume, f["streams"]) == (0.0, 0.0, [0.0] * B)
+    assert sum("pool.consume" in x[-1]["spans"] for x in log) == N_FRAMES - 3
+
+
+def test_tick_syncs_are_the_spawns_pageable_uploads(pool_run):
+    # host frames go up pinned and the fetch is never pending on the CPU:
+    # a tick's only counted sites are a spawn's 3 pose copies and 2 spawn
+    # uploads
+    pool, _, _, _, _, _ = pool_run
+    spawned = 0
+    for *_, f in pool.timing_log:
+        n = f["spans"].get("frontend.spawn", (0, 0, 0))[2]
+        assert sum(f["syncs"].values()) == 5 * n
+        spawned += n
+    assert spawned >= B
+    assert pool.spans.syncs["keyframe.pose"] == 3 * sum(
+        pool.keyframe_counts())
+
+
+def test_tick_spans_on_the_profilers_clock(pool_run):
+    *_, spans = pool_run
+    assert spans["unprofiled"] == []
+    assert {"pool.dispatch", "step.launch", "pool.consume",
+            "frontend.consume"} <= set(spans["entered"])
+    assert {"step.launch", "pool.consume", "frontend.consume"} \
+        <= spans["traced"]
 
 
 def test_varied_box_matches_jax():
