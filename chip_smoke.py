@@ -16,9 +16,10 @@ non-zero before the result line):
 1. device  — a CUDA card must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them;
 2. build   — the block-matching kernels (bm_cost_kernel, bm_lr_kernel)
-   are compiled from the checkout's sources
-   (scavislam_tpu_torch/csrc/stereo_bm.cu -> build/kernels/); ptxas's
-   registers, shared memory and spills of both (a spill fails);
+   and the dense tracker's evaluation (dense_ic_partial_kernel,
+   dense_ic_final_kernel) are compiled from the checkout's sources
+   (scavislam_tpu_torch/csrc/{stereo_bm,dense_ic}.cu -> build/kernels/);
+   ptxas's registers, shared memory and spills of each (a spill fails);
 3. kernel  — the CUDA kernels against their plain PyTorch version on one
    rendered 512x384 pair at 64 disparities: the output must be torch.equal
    to the plain version's and within 0.5 px of ground truth (median); the
@@ -30,7 +31,8 @@ non-zero before the result line):
    2) on the wander-in-closed-box workload at step 0.06, 80 frames: frames/s,
    keyframes, ATE against ground truth and the kernel's launch count, which
    must equal the frames stepped; every frame must track, >= 2 keyframes,
-   ATE < 0.05 m;
+   ATE < 0.05 m; the dense evaluation's launches per step replay
+   (phase 17);
 5. batched — frame 0 of 8 scenes at 512x384 (stream 0 closed_box(), streams
    1-7 varied_box(s)), binomial3-smoothed and Sobel-prefiltered: the batched
    kernel must equal (torch.equal) its plain version and the single-image
@@ -50,13 +52,14 @@ non-zero before the result line):
    vmapped step) one CUDA graph: one capture at tick 0 and one replay per
    later tick; no synchronizing call that sync debug mode "warn" sees on
    a tick but SPAWN_SYNCS per keyframe decided on it (the tick's one
-   wait, on the packed fetch's CUDA event, it does not see). (b) From the
+   wait, on the packed fetch's CUDA event, it does not see); the dense
+   evaluation's launches per tick replay (phase 17). (b) From the
    state at tick 12, one replay of the batched program held lane by lane
    against each stream's single-stream step replayed by a StepGraph (the
    programs round differently): counts, matches and gates equal, the
    pose within 1e-6 and the observations within 2e-4 px plus 1e-6
    relative (the CPU tests' bars), or within twice the single-stream
-   replay's own move over 4 one-ulp moves of its f32 state where that is
+   replay's own move over 16 one-ulp moves of its f32 state where that is
    larger; the maxima, bars and moves printed; ms per batched replay
    against 8 single replays;
 8. system  — SlamSystem(threaded, pipelined at depth 3, loop closure off,
@@ -248,6 +251,21 @@ non-zero before the result line):
    every graph frame that spawns no keyframe; one block-matching launch
    per frame stepped; wall ms per frame.
 
+17. dense_ic — the dense tracker's inverse-compositional evaluation
+   (ops/dense_ic.py) at the benchmark cells' level shapes
+   (probes/dense_ic_cases.py: nc one stream with 49,152 / 12,288 / 12,288
+   points at levels 0-2, fleet 8 streams with 12,288 / 3,072 / 12,288,
+   clouds of rendered frames, at the identity and at a nearby pose, each
+   stream its own with t up to ~1 cm): at each, the kernel within
+   2e-7 of the float64 sum of the plain version's per-point terms (H, b,
+   chi2, over the largest entry) and its difference from the plain
+   version, the batched call (fleet) bit-equal to per-lane calls and two
+   graph replays bit-equal to the eager calls; microseconds a call in a graph of 31 calls (one level's
+   evaluations), kernel and plain version, beside the bytes bound (41 B a
+   point and the image once at 3.35 TB/s); and the launches per step
+   replay (phase 4) and per tick replay (phase 7), 93 each (3 levels x (1 +
+   30 trips)).
+
 After the phases, torch.profiler (last, so that its tracing cannot slow the
 timed phases): the device time of each kernel of one single-image
 block-matching call, and the launches and summed kernel time per BP, per
@@ -339,7 +357,9 @@ def _ptxas(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$]+)", line)
         if m:
-            name = next((k for k in ("bm_cost_kernel", "bm_lr_kernel")
+            name = next((k for k in ("bm_cost_kernel", "bm_lr_kernel",
+                                     "dense_ic_partial_kernel",
+                                     "dense_ic_final_kernel")
                          if k in m.group(1)), m.group(1))
             out.setdefault(name, [0, 0, 0])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -2387,6 +2407,14 @@ def _step_args(fe, frame):
 LANE_POSE_TOL, LANE_OBS_TOL, MONO_LANE_TOL = 1e-6, 2e-4, 1e-5
 LANE_WITNESS_MARGIN = 2.0
 LANE_WITNESS_DRAWS = 4
+# phase 7 (b)'s draws: the single-stream step's move under one-ulp state
+# moves is heavy-tailed (its LMs' accept decisions flip), so 4 draws often
+# miss it. Measured on an H100 from the states of ticks 6, 10, 12, 16 and
+# 20, for two versions of the step (the dense evaluation in PyTorch and as
+# a CUDA kernel): with 4 draws some lane of 2 of the 5 ticks of each
+# version left the bar (by up to 18x); with 16, 1 of 5 ticks of the
+# first (by 1.4x) and none of the second
+POOL_WITNESS_DRAWS = 16
 # the f32 state of frontend_step's and mono_step's arguments: the dense
 # state, the previous pose, the tables
 STEREO_STATE, MONO_STATE = (1, 2, 4, 5, 6, 8, 9), (1, 2, 4, 5, 6)
@@ -2489,7 +2517,8 @@ def _pool_lanes(pool, args):
     graph(*singles[0], **kw)  # the capture; its result is the warm-up's
     refs = [graph(*a, **kw) for a in singles]
     spreads = [_rounding_spread(lambda *x: graph(*x, **kw), a, STEREO_STATE,
-                                _stereo_leaves) for a in singles]
+                                _stereo_leaves, POOL_WITNESS_DRAWS)
+               for a in singles]
     bars = [_lane_bars(sp) for sp in spreads]
     rows = [_lane_diff(out, s, refs[s], bars[s]) for s in range(pool.B)]
     spread_line = ", ".join(f"[{sp['pose']:.1e} {sp['obs']:.1e}]"
@@ -2503,7 +2532,7 @@ def _pool_lanes(pool, args):
           f"(counts, matches and gates equal; pose within "
           f"{LANE_POSE_TOL:g} and observations within {LANE_OBS_TOL:g} px "
           f"plus 1e-6 relative, or {LANE_WITNESS_MARGIN:g} times the "
-          f"single-stream replay's own move over {LANE_WITNESS_DRAWS} "
+          f"single-stream replay's own move over {POOL_WITNESS_DRAWS} "
           f"one-ulp moves of its state where larger: per stream [pose obs] "
           f"{spread_line}); ms between CUDA events {ms_b:.2f} per batched replay against "
           f"{ms_1:.2f} for {pool.B} single-stream replays", flush=True)
@@ -2619,6 +2648,51 @@ def _phase_step_graph(cam, cfg, dev, frames, seq):
     return calls
 
 
+def _phase_dense_ic(dev, per_step, per_tick):
+    """Phase 17; returns the kernel's entry of the `kernels` line (its
+    numbers at nc's level 0 and the identity)."""
+    from probes import dense_ic_cases as cases
+    from scavislam_tpu_torch.ops import dense_ic
+    t17 = time.perf_counter()
+    rows, worst, nc0 = [], 0.0, None
+    for cell, (streams, subs) in cases.CELLS.items():
+        levels = cases.cell_levels(dev, streams, subs)
+        for lv in (2, 1, 0):
+            for k, (R, t) in enumerate(cases.poses(dev, streams)):
+                o = cases.level_line(levels[lv], R, t, _cuda_ms)
+                worst = max(worst, *o["vs_f64"])
+                rows.append(f"{cell} L{lv} {o['B']}x{o['n']} "
+                            f"{('identity', 'nearby')[k]}: "
+                            f"{o['us_graph_kernel']:.2f} us (plain "
+                            f"{o['us_graph_plain']:.1f}, bound "
+                            f"{o['bound_us']:.2f}), vs plain "
+                            f"{max(o['vs_plain']):.1e}, vs f64 "
+                            f"{max(o['vs_f64']):.1e}")
+                if (cell, lv, k) == ("nc", 0, 0):
+                    nc0 = o
+                if not (o["graph_equal"] and o.get("vmap_equal", True)):
+                    _fail(f"dense_ic {cell} level {lv} pose {k}: replays "
+                          "or lanes differ")
+    print(f"dense_ic: us a call in a graph of {cases.GRAPH_CALLS}, at the "
+          "identity and at a nearby pose; " + "; ".join(rows)
+          + f"; largest difference from the float64 sum of the plain "
+          f"version's terms {worst:.2e} (bar 2e-7); launches per step "
+          f"replay {per_step:g}, per tick replay {per_tick:g} (want 93); "
+          f"phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+    if worst > 2e-7:
+        _fail(f"dense_ic against the float64 sum: {worst}")
+    if (per_step, per_tick) != (93, 93):
+        _fail(f"dense_ic launches per replay {per_step}, {per_tick} != 93")
+    return {"name": "dense_ic", "route": "cuda",
+            "source": "scavislam_tpu_torch/csrc/dense_ic.cu",
+            "replaces": None, "launches": dense_ic.ic_pass.launches,
+            "max_abs_err": nc0["vs_plain_abs"],
+            "ms": nc0["us_graph_kernel"] / 1e3,
+            "plain_ms": nc0["us_graph_plain"] / 1e3,
+            "bound_ms": nc0["bound_us"] / 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
 def _scenes(n):
     from scavislam_tpu_torch.io.synthetic import closed_box, varied_box
     return [closed_box()] + [varied_box(s) for s in range(1, n)]
@@ -2664,6 +2738,17 @@ def main():
         _fail(f"ptxas report names {sorted(ptx)}")
     if any(sp for _, _, sp in ptx.values()):
         _fail("a kernel spills registers")
+    from scavislam_tpu_torch.ops import dense_ic
+    dense_ic._Kernel.load()
+    ptx_ic = _ptxas(dense_ic._Kernel.log)
+    print(f"build: dense_ic built+loaded in "
+          f"{dense_ic._Kernel.build_seconds:.2f} s; ptxas " + "; ".join(
+              f"{k} {r} registers, {sm} B static smem, {sp} B spilled"
+              for k, (r, sm, sp) in sorted(ptx_ic.items())), flush=True)
+    if sorted(ptx_ic) != ["dense_ic_final_kernel", "dense_ic_partial_kernel"]:
+        _fail(f"ptxas report names {sorted(ptx_ic)}")
+    if any(sp for _, _, sp in ptx_ic.values()):
+        _fail("a dense_ic kernel spills registers")
 
     cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
                               (cfg.cam.width, cfg.cam.height), cfg.cam.baseline)
@@ -2709,6 +2794,7 @@ def main():
     torch.cuda.synchronize()
 
     stereo_bm.block_matching_disparity_bm.launches = 0
+    ic0 = dense_ic.ic_pass.launches
     fe = StereoFrontend(cam, cfg, device=dev)
     t0 = time.perf_counter()
     fe.process_first_frame(frames[0])
@@ -2725,6 +2811,9 @@ def main():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = stereo_bm.block_matching_disparity_bm.launches
+    # one step a frame: the capture's eager warm-up at frame 0, a replay
+    # at each later frame
+    ic_per_step = (dense_ic.ic_pass.launches - ic0) / stepped
     ate = _ate(est, [f["T_cw_gt"] for f in frames[:tracked]])
     fps = (tracked - 1) / (t2 - t1)
     print(f"slice: {tracked}/{N_FRAMES} frames tracked, {fe.next_kf} keyframes, "
@@ -2849,6 +2938,7 @@ def main():
         return step(*args)
 
     pool.step = record
+    ic0 = dense_ic.ic_pass.launches
     t0 = time.perf_counter()
     pool.process_first_frames(ticks[0])
     torch.cuda.synchronize()
@@ -2868,6 +2958,7 @@ def main():
     pool.step = step
     launches_b = stereo_bm.block_matching_disparity_bm_batched.launches
     launches_1 = stereo_bm.block_matching_disparity_bm.launches
+    ic_per_tick = (dense_ic.ic_pass.launches - ic0) / N_TICKS
     captures, replays = graph.captures, graph.replays
     fps_pool = N_STREAMS * (N_TICKS - 1) / (t2 - t1)
     ms_tick = 1000.0 * (t2 - t1) / (N_TICKS - 1)
@@ -2983,6 +3074,8 @@ def main():
     launches += _phase_parity(cam, cfg, dev)
     # -- 16. the frame step as a CUDA graph against the eager step
     step_calls = _phase_step_graph(cam, cfg, dev, frames, seq)
+    # -- 17. the dense tracker's evaluation at the cells' shapes
+    ic_record = _phase_dense_ic(dev, ic_per_step, ic_per_tick)
 
     try:
         dev_us = {k[:60]: round(us, 2) for k, _, us in _kernel_profile(
@@ -3032,6 +3125,7 @@ def main():
          "replaces": REPLACES_BATCHED, "launches": launches_b,
          "max_abs_err": max_abs_err_b, "ms": ms_kb, "plain_ms": ms_pb,
          "bound_ms": bound_b, "bound_by": bound_by_b, "library_ms": None},
+        ic_record,
     ]}))
     print(f"script: {time.perf_counter() - t_script:.1f} s from start to "
           "the result line", flush=True)

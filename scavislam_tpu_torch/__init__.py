@@ -19,8 +19,10 @@ monocular mode (``models.mono_frontend.MonoFrontend`` with
 ``models.mono_loop``'s Sim3 loop closure, ``apps.mono_vo``), checkpoints
 (``utils.serialization``), the headless viewers (``apps.visualize``,
 ``apps.map3d``, ``apps.watch``) and the vocabulary trainer
-(``apps.create_dictionary``), with the block matcher written by hand in
-CUDA C++ for Hopper (``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``).
+(``apps.create_dictionary``), with the block matcher and the dense
+tracker's evaluation written by hand in CUDA C++ for Hopper
+(``ops/stereo_bm.py`` + ``csrc/stereo_bm.cu``, ``ops/dense_ic.py`` +
+``csrc/dense_ic.cu``).
 
 Device policy: every function runs on the device of the tensors it is given.
 The entry points that hold state (``SlamSystem``, ``StereoFrontend``,

@@ -22,8 +22,11 @@ a CUDA graph. On the CPU they leave the loop at the twin's stop
 batched program (``lanes``: the multistream steps' vmap over streams),
 where the stop differs per stream.
 
-Bilinear sampling has the exact semantics of the twin's ``_sample_qpack``
-(clamped base, fractions from the clamped base). The twin's tap packing
+The inverse-compositional evaluation (``_ic_pass``: H, b and chi2 at a
+candidate pose) is ``ops.dense_ic``'s: its plain version on the CPU, one
+hand-written CUDA kernel call on a card (batched over the streams under
+vmap). Bilinear sampling has the exact semantics of the twin's
+``_sample_qpack`` (clamped base, fractions from the clamped base). The twin's tap packing
 (``_qpack``, ``_sample_qpack``) and its bf16 matrix-unit sampler
 (``_sample_matmul``) are TPU workarounds for transaction-bound gathers and
 are not ported, nor their tests.
@@ -43,12 +46,12 @@ import torch
 
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3
-from scavislam_tpu_torch.ops.image import bilinear_sample, float_to_index
+from scavislam_tpu_torch.ops import dense_ic
+from scavislam_tpu_torch.ops.dense_ic import RES_CLAMP, in_frame, project
+from scavislam_tpu_torch.ops.image import bilinear_sample
 
-RES_CLAMP = 0.1
 MAX_ITERS = 15
 MAX_TRIALS = 2
-BORDER = 2
 
 
 class DenseTrackingResult(NamedTuple):
@@ -57,28 +60,16 @@ class DenseTrackingResult(NamedTuple):
     iters: torch.Tensor  # accepted steps per level, (levels,)
 
 
-def _project(cam, xyz_cur):
-    z = xyz_cur[..., 2]
-    return z, torch.stack([xyz_cur[..., 0] / z * cam.focal + cam.pp[0],
-                           xyz_cur[..., 1] / z * cam.focal + cam.pp[1]], dim=-1)
-
-
-def _in_frame(uv, z, w, h, valid):
-    return ((uv[..., 0] >= BORDER) & (uv[..., 0] < w - BORDER)
-            & (uv[..., 1] >= BORDER) & (uv[..., 1] < h - BORDER)
-            & (z > 1e-6) & valid)
-
-
 def _residuals(cam, img, R, t, xyz_ref, i_ref, valid):
     """Clamped photometric residuals, in-frame mask, current-frame points
     and their pixels, for all reference points."""
     xyz_cur = xyz_ref @ R.T + t
-    z, uv = _project(cam, xyz_cur)
+    z, uv = project(cam.focal, cam.pp, xyz_cur)
     w, h = cam.size
-    in_frame = _in_frame(uv, z, w, h, valid)
+    inside = in_frame(uv, z, w, h, valid)
     i_cur, _ = bilinear_sample(img, uv)
     res = torch.clamp(i_ref - i_cur, -RES_CLAMP, RES_CLAMP)
-    return (torch.where(in_frame, res, torch.zeros_like(res)), in_frame,
+    return (torch.where(inside, res, torch.zeros_like(res)), inside,
             xyz_cur, uv)
 
 
@@ -91,14 +82,14 @@ def _normal_equations(cam, img, dx_img, dy_img, R, t, xyz_ref, i_ref, valid):
     """(H, b, chi2) = (J^T J, J^T r, r^T r) at pose (R, t), the residual
     Jacobian from the gradients sampled at the current pixels (Sobel with
     its 1/8 scale: the true centred-difference gradient, no extra factor)."""
-    res, in_frame, xyz_cur, uv = _residuals(cam, img, R, t, xyz_ref, i_ref,
-                                            valid)
+    res, inside, xyz_cur, uv = _residuals(cam, img, R, t, xyz_ref, i_ref,
+                                          valid)
     dx = bilinear_sample(dx_img, uv)[0]
     dy = bilinear_sample(dy_img, uv)[0]
     j0, j1 = _proj_pose_jac(cam.focal, xyz_cur)
     # r = I_ref - I_cur(uv(T x))  =>  dr/dxi = -grad I . duv/dxi
     J = -(dx[..., None] * j0 + dy[..., None] * j1)
-    J = torch.where(in_frame[..., None], J, torch.zeros_like(J))
+    J = torch.where(inside[..., None], J, torch.zeros_like(J))
     return J.T @ J, J.T @ res, torch.sum(res * res)
 
 
@@ -132,37 +123,12 @@ def template_jacobian(focal, xyz_ref, dx_ref, dy_ref, valid):
     return torch.where(valid[..., None], J, torch.zeros_like(J))
 
 
-def _sample_exact(img, h, w, uv):
-    """Bilinear sample with the twin's _sample_qpack semantics. Returns
-    (values, in_bounds)."""
-    u = uv[..., 0]
-    v = uv[..., 1]
-    valid = (u >= 0.0) & (v >= 0.0) & (u <= w - 1.0) & (v <= h - 1.0)
-    u0c = float_to_index(torch.floor(u)).clamp(0, w - 2)
-    v0c = float_to_index(torch.floor(v)).clamp(0, h - 2)
-    fu = u - u0c.to(u.dtype)
-    fv = v - v0c.to(v.dtype)
-    flat = img.reshape(-1)
-    base = (v0c * w + u0c).long()
-    top = flat[base] * (1.0 - fu) + flat[base + 1] * fu
-    bot = flat[base + w] * (1.0 - fu) + flat[base + w + 1] * fu
-    return top * (1.0 - fv) + bot * fv, valid
-
-
 def _ic_pass(cam, img, R, t, xyz_ref, i_ref, J_ref, valid):
     """One inverse-compositional evaluation at pose (R, t): masked
-    (H, b, chi2) with the fixed template Jacobian."""
-    h, w = img.shape
-    z, uv = _project(cam, xyz_ref @ R.T + t)
-    i_cur, _ = _sample_exact(img, h, w, uv)
-    in_frame = _in_frame(uv, z, w, h, valid)
-    res = torch.clamp(i_ref - i_cur, -RES_CLAMP, RES_CLAMP)
-    res = torch.where(in_frame, res, torch.zeros_like(res))
-    Jm = torch.where(in_frame[..., None], J_ref, torch.zeros_like(J_ref))
-    H = Jm.T @ Jm
-    b = Jm.T @ res
-    chi2 = torch.sum(res * res)
-    return H, b, chi2
+    (H, b, chi2) with the fixed template Jacobian (``ops.dense_ic``: the
+    plain version on the CPU, the CUDA kernels on a card)."""
+    return dense_ic.ic_pass(img, R, t, xyz_ref, i_ref, J_ref, valid,
+                            cam.focal, cam.pp)
 
 
 def to_device_pose(R: np.ndarray, t: np.ndarray, device) -> SE3:

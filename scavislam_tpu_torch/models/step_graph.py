@@ -20,7 +20,10 @@ reprojection bound, the dense subsampling and sampler).
   the block-matching library and every library handle; its result is that
   call's result), then captures ``fn`` on static copies of the tensor
   arguments with ``capture_error_mode="thread_local"``: the other threads
-  keep launching on their own streams meanwhile.
+  keep launching on their own streams meanwhile. Python's cyclic
+  collector is off while any capture runs: a cycle it frees can release
+  events or pinned memory, and such a free in the capturing thread
+  invalidates the capture.
 - Inputs. Before a replay each tensor argument is copied into its static
   buffer unless it is the very tensor copied last time, at the same
   ``_version``: the point and pose tables change only at keyframes and
@@ -29,10 +32,10 @@ reprojection bound, the dense subsampling and sampler).
 - Outputs. Each replay's outputs are cloned, so that a result stays valid
   past the next replay, as an eager call's does (pipelining, keyframe
   images, the debug state, the spawn).
-- Launch counts. A counted kernel wrapper (``ops.stereo_bm``) called
-  during the capture records its kernels without launching them, so it
-  notes the call in ``stereo_bm.CAPTURED`` (per thread) instead of
-  counting it; every replay counts those calls.
+- Launch counts. A counted kernel wrapper (``ops.stereo_bm``,
+  ``ops.dense_ic``) called during the capture records its kernels without
+  launching them, so it notes the call in ``stereo_bm.CAPTURED`` (per
+  thread) instead of counting it; every replay counts those calls.
 
 Why the backend's programs are graphs too: one replay of the frame step
 submits its tens of thousands of kernels in one driver call, which holds
@@ -46,6 +49,9 @@ graphs; the callers run ``fn`` directly there.
 """
 
 from __future__ import annotations
+
+import gc
+import threading
 
 import torch
 from torch.utils import _pytree as pytree
@@ -122,6 +128,32 @@ class GraphedFn:
             return captured.replay(tensors)
 
 
+class _CollectorOff:
+    """Python's cyclic collector off while at least one capture runs, in
+    any thread, and back as it was when the last one ends."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.captures = 0
+        self.was_on = False
+
+    def __enter__(self):
+        with self.lock:
+            if self.captures == 0:
+                self.was_on = gc.isenabled()
+                gc.disable()
+            self.captures += 1
+
+    def __exit__(self, *exc):
+        with self.lock:
+            self.captures -= 1
+            if self.captures == 0 and self.was_on:
+                gc.enable()
+
+
+_COLLECTOR_OFF = _CollectorOff()
+
+
 def _capture(call, tensors):
     """(the warm-up's result, the captured call)."""
     dev = tensors[0].device
@@ -138,8 +170,8 @@ def _capture(call, tensors):
     graph = torch.cuda.CUDAGraph()
     stereo_bm.CAPTURED.calls = recorded = []
     try:
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with _COLLECTOR_OFF, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
             static_out = call(static_in)
     finally:
         stereo_bm.CAPTURED.calls = None

@@ -1102,3 +1102,25 @@ def test_stream_pool_replays_one_graph_per_tick(cuda_device):
         for x, y in zip(torch.utils._pytree.tree_leaves(a),
                         torch.utils._pytree.tree_leaves(b)):
             assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_graph_capture_runs_with_the_cyclic_collector_off(cuda_device):
+    # a reference cycle freed inside a capture can release events or
+    # pinned memory, which invalidates the capture: GraphedFn captures
+    # with Python's cyclic collector off, and its warm-up runs with it on
+    import gc
+
+    from scavislam_tpu_torch.models.step_graph import GraphedFn
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    graphed = GraphedFn(fn)
+    x = torch.arange(4.0, device=cuda_device)
+    assert gc.isenabled()
+    out = graphed(x)  # the warm-up, then the capture
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(graphed(x), out) and len(seen) == 2  # a replay

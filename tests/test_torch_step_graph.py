@@ -286,3 +286,28 @@ def test_capture_records_launches_per_thread():
     assert fn.launches == n + 1
     stereo_bm._count(fn)
     assert fn.launches == n + 2
+
+
+def test_collector_off_while_any_capture_runs():
+    # Python's cyclic collector is off while at least one capture runs
+    # (nested here, as two threads' captures overlap) and back as it was
+    # once the last one ends
+    import gc
+
+    from scavislam_tpu_torch.models.step_graph import _CollectorOff
+    off = _CollectorOff()
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        with off:
+            assert not gc.isenabled()
+            with off:
+                assert not gc.isenabled()
+            assert not gc.isenabled()
+        assert gc.isenabled()
+        gc.disable()
+        with off:
+            assert not gc.isenabled()
+        assert not gc.isenabled()  # off before, left off
+    finally:
+        (gc.enable if was else gc.disable)()
