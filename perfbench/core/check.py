@@ -1,76 +1,43 @@
-"""What decides ``correct``.
+"""What decides ``correct``: the parts every step comparison shares.
 
-The comparison with the plain reference (``perfbench/reference``): at
-calls of the window drawn from the seed, a recorder keeps the program's
-state that the timed path's own frame step was handed (the previous pose,
-the map) and what it returned (the pose, the disparity, its matches).
-Once the window has closed and the program is released, the reference
-works out, from the frames the benchmark made, the disparity and the pose
-the step should have returned (``reference/frame.py``), in float64:
+At calls of the window drawn from the seed, a ``CallRecorder`` keeps what
+the configuration's step comparison (``perfbench/checks/<step_check>.py``,
+named under ``"step_check"``) picks out of the timed path's own frame
+step: the program's state the call was handed and what it returned. Once
+the window has closed and the program is released, that comparison's
+``compare`` judges every kept call against its plain reference
+(``perfbench/reference``) and adds its numbers to a ``Readings``.
 
-- ``disp_mismatch_px``: pixels of the checked frames' disparity that
-  differ from plain block matching's (exact: limit 0);
-- ``step_pose_gap_median``: the median, over every checked call and, in
-  the pool, every lane of it, of the largest absolute difference over the
-  12 numbers of the pose (R_cw, t_cw; t in metres);
-- ``step_pose_gap``: the widest of them. The motion-only LM stops where
-  an IRLS step no longer lowers its cost, which depends on where it
-  started: rounding in the tracked pose moves a pose by up to ~1e-3 now
-  and then (PERF.md). The median holds the precision; the widest, at a
-  looser limit, holds every single pose and lane.
-
-The run as a whole, against the generator's exact ground truth:
+The run as a whole, against the generator's exact ground truth, whatever
+the step:
 
 - ``frames_without_pose``: frames handed in, in the window or in the
   prefix that ATE is taken over, for which the system returned no pose
   (limit 0);
-- ``stream_ate_m``: the worst stream's ATE over the prefix.
+- ``stream_ate_m``: the worst stream's ATE over the prefix, under the
+  configuration's ``"ate_align"`` (``core/arith.py``).
 
-The control (``perfbench/control.py``) is the reference computed in
-float32 with TF32 allowed, put in the program's place: the same numbers
-for it against the float64 reference.
+Each number is compared against its limit in the configuration's
+``limits``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import statistics
 
 import torch
-
-from perfbench.reference import frame as ref
-from perfbench.reference.stereo_bm import disparity_of_frames
-
-
-def _clone(x):
-    return x.detach().clone()
-
-
-def take_state(args) -> dict:
-    """The program's state a frame step was handed (single stream or
-    pool: the same argument positions)."""
-    poses, points = args[8], args[9]
-    return {"R": _clone(args[5]), "t": _clone(args[6]),
-            "poses": (_clone(poses.R), _clone(poses.t)),
-            "points": (_clone(points.psi), _clone(points.anchor),
-                       _clone(points.level)),
-            "cand": _clone(args[10])}
-
-
-def keep_out(out) -> dict:
-    """What a frame step returned that the checks judge."""
-    return {"R": _clone(out.R_cw), "t": _clone(out.t_cw),
-            "disp": _clone(out.disp), "obs": _clone(out.obs_uvu),
-            "matched": _clone(out.matched)}
 
 
 class CallRecorder:
     """Wraps `obj.attr`, the frame step. Armed with a tag (the frame
     index), the next call's state is kept before it runs and its output
-    after; each kept call is (tag, state, output)."""
+    after, by the step comparison's `take_state(args, kwargs)` and
+    `keep_out(out)`; each kept call is (tag, state, output)."""
 
-    def __init__(self, obj, attr):
+    def __init__(self, obj, attr, take_state, keep_out):
         self.orig = getattr(obj, attr)
+        self.take_state = take_state
+        self.keep_out = keep_out
         self.tag = None
         self.samples = []
         setattr(obj, attr, self)
@@ -82,9 +49,9 @@ class CallRecorder:
         if self.tag is None:
             return self.orig(*args, **kwargs)
         tag, self.tag = self.tag, None
-        state = take_state(args)
+        state = self.take_state(args, kwargs)
         out = self.orig(*args, **kwargs)
-        self.samples.append((tag, state, keep_out(out)))
+        self.samples.append((tag, state, self.keep_out(out)))
         return out
 
 
@@ -106,11 +73,6 @@ def precision(tf32: bool):
 def pose_gap(R_a, t_a, R_b, t_b) -> float:
     return float(max((R_a.double() - R_b.double()).abs().max(),
                      (t_a.double() - t_b.double()).abs().max()))
-
-
-def camera(config: dict) -> ref.Camera:
-    c = config["camera"]
-    return ref.Camera(c["f"], c["px"], c["py"], c["baseline"])
 
 
 class Readings:
@@ -146,42 +108,3 @@ class Readings:
     def result(self) -> dict:
         return {k: {"value": self.values.get(k), "limit": lim}
                 for k, lim in self.limits.items()}
-
-
-def compare_steps(samples, stacks, config: dict, readings: Readings,
-                  control: Readings = None):
-    """Each kept step against the reference. `stacks[s]` holds stream s's
-    uint8 frames; a sample's tag is the checked frame's index. A pool's
-    step carries a leading stream axis: every lane is checked."""
-    cam = camera(config)
-    subsample = config["dense_subsample"]
-    max_reproj = float(config["max_reproj_error"])
-    num_disp = int(config["num_disp"])
-    gaps, ctl_gaps = [], []
-    for i, state, out in samples:
-        pool = out["R"].dim() == 3
-        for s in range(len(stacks) if pool else 1):
-            lane = (lambda x: x[s]) if pool else (lambda x: x)  # noqa: E731
-            prev, cur = stacks[s][i - 1], stacks[s][i]
-            disp = disparity_of_frames(cur, num_disp)
-            readings.add("disp_mismatch_px", (lane(out["disp"]) != disp).sum())
-            inputs = ref.StepInputs(
-                prev, cur, disparity_of_frames(prev, num_disp),
-                lane(state["R"]), lane(state["t"]),
-                tuple(lane(x) for x in state["poses"]),
-                tuple(lane(x) for x in state["points"]), lane(state["cand"]),
-                lane(out["obs"]), lane(out["matched"]))
-            with precision(False):
-                R, t = ref.frame_pose(inputs, cam, subsample, max_reproj)
-            gaps.append(pose_gap(lane(out["R"]), lane(out["t"]), R, t))
-            if control is not None:
-                with precision(True):
-                    Rc, tc = ref.frame_pose(inputs, cam, subsample,
-                                            max_reproj, torch.float32)
-                control.add("disp_mismatch_px", 0)
-                ctl_gaps.append(pose_gap(Rc, tc, R, t))
-    for rd, g in ((readings, gaps), (control, ctl_gaps)):
-        if g:
-            rd.gaps = g
-            rd.worst("step_pose_gap", max(g))
-            rd.worst("step_pose_gap_median", statistics.median(g))

@@ -1,7 +1,9 @@
 """Faults planted in the timed path, under the recorder, to see the
 comparison that decides ``correct`` come out false: each wraps the
-program's frame step (the single stream's, or the pool's tick with a
-leading stream axis) and changes what it returns. ``plant(name)`` gives a
+program's frame step (the driver's ``step_site``: the single stream's
+step, or the pool's tick with a leading stream axis) and changes what it
+returns, given the state the step was handed as the configuration's step
+comparison takes it (``take_state``). ``plant(name)`` gives a
 ``program_hook`` for ``harness.execute``."""
 
 from __future__ import annotations
@@ -17,32 +19,34 @@ def _with_pose(out, R, t):
     return out._replace(R_cw=R, t_cw=t, packed=packed)
 
 
-def state_unchanged(out, args):
+def state_unchanged(out, state):
     """Every step returns the pose it was handed."""
-    return _with_pose(out, args[5], args[6])
+    return _with_pose(out, state["R"], state["t"])
 
 
-def answer_altered(out, args):
+def answer_altered(out, state):
     """The disparity altered where it is produced."""
     return out._replace(disp=torch.where(out.disp > 0, out.disp + 0.25,
                                          out.disp))
 
 
-def half_batch(out, args):
+def half_batch(out, state):
     """Half of the pool's streams left out of the tick's program: their
     lanes come back as they went in."""
-    h = args[5].shape[0] // 2
-    return _with_pose(out, torch.cat([out.R_cw[:h], args[5][h:]]),
-                      torch.cat([out.t_cw[:h], args[6][h:]]))
+    R, t = state["R"], state["t"]
+    h = R.shape[0] // 2
+    return _with_pose(out, torch.cat([out.R_cw[:h], R[h:]]),
+                      torch.cat([out.t_cw[:h], t[h:]]))
 
 
-def one_lane(out, args):
+def one_lane(out, state):
     """The pool's last stream comes back as it went in."""
-    return _with_pose(out, torch.cat([out.R_cw[:-1], args[5][-1:]]),
-                      torch.cat([out.t_cw[:-1], args[6][-1:]]))
+    R, t = state["R"], state["t"]
+    return _with_pose(out, torch.cat([out.R_cw[:-1], R[-1:]]),
+                      torch.cat([out.t_cw[:-1], t[-1:]]))
 
 
-def pose_lost(out, args):
+def pose_lost(out, state):
     """The host is handed a non-finite pose: it drops every frame as lost
     while the device's pose chain goes on."""
     packed = out.packed.clone()
@@ -63,12 +67,13 @@ def plant(name: str, before=None):
     def hook(driver):
         if before is not None:
             before(driver)
-        owner, attr = ((driver.system.frontend, "_step")
-                       if hasattr(driver, "system") else (driver.pool, "step"))
+        owner, attr = driver.step_site
         orig = getattr(owner, attr)
+        take_state = driver.check.take_state
 
         def broken(*args, **kwargs):
-            return fault(orig(*args, **kwargs), args)
+            state = take_state(args, kwargs)
+            return fault(orig(*args, **kwargs), state)
 
         setattr(owner, attr, broken)
     return hook

@@ -83,6 +83,8 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool,
     overrides = dict(overrides or {})
     params = dict(cell.traffic, **overrides.pop("traffic", {}))
     config = dict(cell.config, **overrides)
+    step_check = manifest.load_check(config)
+    prefix_ate = manifest.ate_align(config)
     cuda = torch.device(device).type == "cuda"
     traffic = Traffic(params, config["camera"], int(config["streams"]),
                       seed, device)
@@ -180,7 +182,7 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool,
 
     # -- end-to-end metrics
     lat_ms = [1e3 * s for _, s in window]
-    ates = [arith.prefix_ate(traj, gts, traffic.ate_frames)[0]
+    ates = [prefix_ate(traj, gts, traffic.ate_frames)[0]
             for traj, gts in zip(driver.trajectories(), driver.gts)]
     values = {
         "frames_per_s": arith.frames_per_s(len(window), t_w1 - t_w0),
@@ -202,7 +204,7 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool,
     ctl = check.Readings(dict(config["limits"])) if control else None
     t_c = time.perf_counter()
     stacks = [st for st, _ in traffic.streams]
-    check.compare_steps(driver.steps.samples, stacks, config, readings, ctl)
+    step_check.compare(driver.steps.samples, stacks, config, readings, ctl)
     n_checked = len(driver.steps.samples)
     if n_checked < len(traffic.check_positions):
         readings.missing.append(

@@ -1,5 +1,8 @@
 """BENCHMARK.json and the files it names: a cell's configuration, traffic
-and metrics, found by name, and the contract's character rules."""
+and metrics, found by name, and the contract's character rules. A
+configuration names its driver (``"system"``: ``systems/<name>.py``), its
+step comparison (``"step_check"``: ``checks/<name>.py``) and its ATE
+alignment (``"ate_align"``: a key of ``arith.ALIGNMENTS``)."""
 
 from __future__ import annotations
 
@@ -7,6 +10,8 @@ import importlib.util
 import json
 import re
 from pathlib import Path
+
+from perfbench.core import arith
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -68,6 +73,8 @@ class Cell:
         conf = {c["name"]: c for c in m["configs"]}[self.workload["config"]]
         self.config_entry = conf
         self.config = _load_json(conf["file"])
+        load_check(self.config)
+        ate_align(self.config)
         with open(traffic_path(self.workload["traffic"])) as f:
             self.traffic = json.load(f)
         e2e = [x for x in m["end_to_end"] if applies(x, name)]
@@ -91,3 +98,43 @@ def load_system(name: str):
     """The driver module systems/<name>.py."""
     return importlib.import_module(f"perfbench.systems.{name}")
 
+
+
+class ConfigError(ValueError):
+    """A configuration that names no known part for a required key."""
+
+
+CHECK_FUNCTIONS = ("take_state", "keep_out", "compare")
+
+
+def load_check(config: dict):
+    """The step comparison checks/<name>.py that the configuration names
+    under ``"step_check"``; no default."""
+    name = config.get("step_check")
+    if not valid_name(name) or "." in name:
+        raise ConfigError(f"the configuration's key 'step_check' names no "
+                          f"step comparison (it holds {name!r})")
+    module = f"perfbench.checks.{name}"
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ConfigError(f"the configuration's key 'step_check' names "
+                          f"{name!r}, and perfbench/checks/ has no such "
+                          "comparison") from None
+    lacks = [f for f in CHECK_FUNCTIONS if not callable(getattr(mod, f, None))]
+    if lacks:
+        raise ConfigError(f"the configuration's key 'step_check' names "
+                          f"{name!r}, which lacks {lacks}")
+    return mod
+
+
+def ate_align(config: dict):
+    """The ATE over a prefix under the alignment the configuration names
+    under ``"ate_align"``; no default."""
+    name = config.get("ate_align")
+    if not isinstance(name, str) or name not in arith.ALIGNMENTS:
+        raise ConfigError(f"the configuration's key 'ate_align' holds "
+                          f"{name!r}, not one of {sorted(arith.ALIGNMENTS)}")
+    return arith.ALIGNMENTS[name]

@@ -5,7 +5,7 @@ place recognition), the frames handed in as device-resident uint8 stacks
 
 from __future__ import annotations
 
-from perfbench.core import check
+from perfbench.core import check, manifest
 from perfbench.core.program import program_config
 
 
@@ -29,9 +29,13 @@ class Driver:
         fe = self.system.frontend
         self.bm_shape = (1, cfg.cam.height, cfg.cam.width,
                          config["num_disp"])
+        self.step_site = (fe, "_step")
+        self.check = manifest.load_check(config)
         if program_hook is not None:
             program_hook(self)
-        self.steps = check.CallRecorder(fe, "_step")
+        self.steps = check.CallRecorder(*self.step_site,
+                                        self.check.take_state,
+                                        self.check.keep_out)
         if logs:
             fe.timing_log = []
 
@@ -101,4 +105,5 @@ class Driver:
         """Drop the program (its state, graphs and threads' objects); the
         recorder keeps only what it cloned."""
         self.system = None
+        self.step_site = None
         self.steps.orig = None

@@ -6,7 +6,7 @@ odometry only: no backend."""
 
 from __future__ import annotations
 
-from perfbench.core import check
+from perfbench.core import check, manifest
 from perfbench.core.program import program_config
 
 
@@ -28,9 +28,13 @@ class Driver:
         self.next = 0
         self.bm_shape = (self.B, cfg.cam.height, cfg.cam.width,
                          config["num_disp"])
+        self.step_site = (self.pool, "step")
+        self.check = manifest.load_check(config)
         if program_hook is not None:
             program_hook(self)
-        self.steps = check.CallRecorder(self.pool, "step")
+        self.steps = check.CallRecorder(*self.step_site,
+                                        self.check.take_state,
+                                        self.check.keep_out)
         if logs:
             self.pool.timing_log = []
 
@@ -85,4 +89,5 @@ class Driver:
     def release(self):
         """Drop the program; the recorder keeps only what it cloned."""
         self.pool = None
+        self.step_site = None
         self.steps.orig = None

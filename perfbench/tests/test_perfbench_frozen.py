@@ -49,6 +49,7 @@ def test_reference_step_agrees_with_the_port_on_the_cpu():
     """One frame step of the port and the plain reference from the same
     state: the disparity equal, the pose within the float32 path's reach
     of the float64 reference."""
+    from perfbench.checks import stereo_step
     from perfbench.core import check
     from perfbench.reference import frame as ref
     from perfbench.reference.stereo_bm import disparity_of_frames
@@ -62,7 +63,8 @@ def test_reference_step_agrees_with_the_port_on_the_cpu():
                                  planes=port.closed_box(), step=0.06,
                                  device="cpu")
     fe = StereoFrontend(cam, cfg, device="cpu")
-    kept = check.CallRecorder(fe, "_step")
+    kept = check.CallRecorder(fe, "_step", stereo_step.take_state,
+                              stereo_step.keep_out)
     frames = [seq.frame(i) for i in range(2)]
     fe.process_first_frame(frames[0])
     kept.arm(1)
