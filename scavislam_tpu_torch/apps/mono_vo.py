@@ -2,11 +2,12 @@
 scavislam_tpu.apps.mono_vo): the mono mode the reference scaffolds but
 never ships (``#ifdef MONO``, README:14-15).
 
-Runs models.mono_frontend.MonoFrontend over the LEFT image stream of a
-disk sequence or a synthetic sequence, with optional Sim3 loop closure
-between revisiting keyframes (models.mono_loop) and window BA. Mono
-trajectories are scale-gauged by the inverse-depth prior: against ground
-truth the summary gives the Sim3-aligned ATE.
+Runs pipeline.mono_system.MonoSystem (models.mono_frontend.MonoFrontend
+with optional window BA and Sim3 loop closure between revisiting
+keyframes, models.mono_loop) over the LEFT image stream of a disk
+sequence or a synthetic sequence. Mono trajectories are scale-gauged by
+the inverse-depth prior: against ground truth the summary gives the
+Sim3-aligned ATE.
 
 Usage:
   python -m scavislam_tpu_torch.apps.mono_vo --synthetic 40 --loop-close
@@ -126,7 +127,7 @@ def main(argv=None):
 
     from scavislam_tpu_torch.core.camera import StereoCamera
     from scavislam_tpu_torch.models import mono_loop
-    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    from scavislam_tpu_torch.pipeline.mono_system import MonoSystem
     from scavislam_tpu_torch.utils.config import Config, load_config
 
     device = resolve_device(args.device)
@@ -163,44 +164,21 @@ def main(argv=None):
         )
         frames = iter(grabber)
 
+    fe = None
     if args.load_system:
         from scavislam_tpu_torch.utils.serialization import load_mono_system
 
         fe = load_mono_system(args.load_system, cam, cfg, device=device)
-    else:
-        fe = MonoFrontend(cam, cfg, prior_idepth=args.prior_idepth,
-                          device=device)
-    if args.pipeline_depth:
-        fe.pipeline_depth = args.pipeline_depth
-    detector = None
-    loops_closed = []
-    if args.loop_close:
-        vocab = (np.load(args.vocabulary)["vocab"] if args.vocabulary
-                 else None)
-        detector = mono_loop.make_mono_place_recognizer(
-            fe, vocab, score_thr=args.loop_score_thr)
-
-    def on_keyframe(kf_id, img):
-        if args.window_ba:
-            # pipelined runs dispatch the solve and adopt it at a later
-            # frame; synchronous runs solve inline
-            fe.window_ba(window=args.dwo_inner if args.dwo else 5,
-                         sync=not args.pipelined, dwo=args.dwo,
-                         outer=args.dwo_outer)
-        if detector is not None:
-            index_keyframe(kf_id, img)
-
-    def index_keyframe(kf_id, img):
-        det = mono_loop.add_keyframe_to_recognizer(detector, fe, kf_id, img)
-        if det is not None:
-            scales = mono_loop.close_loop_sim3(
-                fe, det.query_id, det.loop_id, det.S_query_from_loop)
-            loops_closed.append({
-                "query": det.query_id, "loop": det.loop_id,
-                "inliers": det.inliers,
-                "scale": round(float(det.S_query_from_loop.s), 4),
-                "regauge": round(scales[det.query_id], 4),
-            })
+    vocab = (np.load(args.vocabulary)["vocab"]
+             if args.loop_close and args.vocabulary else None)
+    system = MonoSystem(
+        cam, cfg, prior_idepth=args.prior_idepth, pipelined=args.pipelined,
+        pipeline_depth=args.pipeline_depth, window_ba=args.window_ba,
+        dwo=args.dwo, dwo_inner=args.dwo_inner, dwo_outer=args.dwo_outer,
+        loop_close=args.loop_close, vocabulary=vocab,
+        loop_score_thr=args.loop_score_thr, frontend=fe, device=device)
+    fe = system.frontend
+    detector = system.place_recognizer
 
     watch_state = None
     if args.watch:
@@ -224,7 +202,8 @@ def main(argv=None):
             tmp = os.path.join(watch_state["dir"], "status.json.tmp")
             with open(tmp, "w") as f:
                 json.dump({"frame": n, "keyframes": fe.next_kf,
-                           "lost": lost, "relocalizations": relocs}, f)
+                           "lost": system.lost,
+                           "relocalizations": system.relocalizations}, f)
             os.replace(tmp, os.path.join(watch_state["dir"], "status.json"))
         except Exception as e:  # watching never stops the run
             print(f"watch: refresh failed: {type(e).__name__}: {e}",
@@ -232,8 +211,6 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     n = 0
-    lost = False
-    relocs = 0
     try:
         for frame in frames:
             if args.max_frames and n >= args.max_frames:
@@ -241,54 +218,15 @@ def main(argv=None):
             if "T_cw_gt" in frame:
                 gt_poses.append(frame["T_cw_gt"])
             if n == 0 and not args.load_system:
-                fe.process_first_frame(frame)
-                if detector is not None:
-                    index_keyframe(fe.actkey_id, frame["left"])
-            elif lost:
-                if detector is not None and fe.relocalize(detector, frame):
-                    lost = False
-                    relocs += 1
-            elif args.pipelined:
-                r = fe.process_frame_pipelined(frame)
-                if r is not None:
-                    ok, dropped, _fid = r
-                    if not ok:
-                        if detector is not None:
-                            print(f"mono tracking lost near frame {n}; "
-                                  "relocalizing", file=sys.stderr)
-                            lost = True
-                            n += 1
-                            continue
-                        print(f"mono tracking FAILED near frame {n}",
-                              file=sys.stderr)
-                        break
-                    if dropped:
-                        on_keyframe(fe.actkey_id, fe.last_kf_img)
-            else:
-                ok, dropped = fe.process_frame(frame)
-                if not ok:
-                    if detector is not None:
-                        # lost mode: keep consuming frames and relocalize
-                        print(f"mono tracking lost at frame {n}; "
-                              "relocalizing", file=sys.stderr)
-                        lost = True
-                        n += 1
-                        continue
-                    print(f"mono tracking FAILED at frame {n}",
-                          file=sys.stderr)
-                    break
-                if dropped:
-                    on_keyframe(fe.actkey_id, frame["left"])
+                system.process_first_frame(frame)
+            elif not system.process_frame(frame):
+                break
             if watch_state is not None:
                 watch_tick(n)
             n += 1
-        if args.pipelined:
-            for ok, dropped, _fid in fe.flush_pipeline():
-                if dropped:
-                    on_keyframe(fe.actkey_id, fe.last_kf_img)
-            # a window solve dispatched near the end would otherwise be
-            # dropped: the summary and the checkpoint must reflect it
-            fe.adopt_pending_ba(force=True)
+        # a window solve dispatched near the end would otherwise be
+        # dropped: the summary and the checkpoint must reflect it
+        system.finish()
     finally:
         if grabber is not None:
             grabber.close()
@@ -298,8 +236,8 @@ def main(argv=None):
 
     loop_report = None
     if detector is not None:
-        loop_report = {"closed": loops_closed}
-        if not loops_closed and fe.next_kf >= 2:
+        loop_report = {"closed": system.loops_closed}
+        if not system.loops_closed and fe.next_kf >= 2:
             # final check: the last keyframe against the first
             kf_last = max(fe.pose_np)
             S, n_inl = mono_loop.estimate_sim3(fe, kf_last, 0)
@@ -319,7 +257,7 @@ def main(argv=None):
         "keyframes": fe.next_kf,
         "points": int(fe.points.valid.sum()),
         "converged_points": int((lam_qq > fe.conv_q_info).sum()),
-        "relocalizations": relocs,
+        "relocalizations": system.relocalizations,
     }
     if loop_report is not None:
         summary["loop"] = loop_report

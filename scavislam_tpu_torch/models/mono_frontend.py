@@ -29,6 +29,16 @@ covisibility double window with frozen marginalized relative-pose
 constraints, solved by ``ba_solver.solve_ba`` with the disparity residual
 zero-weighted. Synchronous, or dispatched and adopted at a later frame
 boundary (``adopt_pending_ba``); a map re-gauge in between discards it.
+
+Host spans and synchronizing calls (``utils/perfmon.Spans``), on while
+``timing_log`` is a list: ``mono.dispatch`` (candidates, inputs and the
+step) holding ``mono.step`` (the step's call); ``mono.consume`` holding
+``mono.fetch_wait``; ``mono.spawn`` (a keyframe's spawn and its payload
+read); ``mono.window_ba`` (the window's assembly and dispatch) and
+``mono.adopt`` (a landed solve's write-back); ``MonoSystem`` adds
+``mono.place`` and ``mono.relocalize``. Each call that steps a frame, and
+each frame the flush consumes, appends one entry (see ``timing_log``
+below).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from scavislam_tpu_torch.models.map_store import (
 from scavislam_tpu_torch.models.mono_step import mono_step, spawn_points_mono
 from scavislam_tpu_torch.ops.image import build_pyramid
 from scavislam_tpu_torch.utils.config import Config
+from scavislam_tpu_torch.utils.perfmon import Spans, span_s, spanned
 
 CAND_CAP = 512
 NEW_PER_LEVEL = (192, 64, 32)
@@ -98,6 +109,18 @@ class MonoFrontend:
         self._pw_dev = torch.full((), self.prior_weight, dtype=torch.float32,
                                   device=dev)
         self._actkey_cache = None
+        # the frame step, an attribute as in StereoFrontend (eager here)
+        self._step = mono_step
+        # when set to a list, each call that steps a frame (and each frame
+        # flush_pipeline consumes) appends one (frame_id, dispatch_s,
+        # fetch_wait_s, consume_s, folded) tuple: the seconds of its
+        # mono.dispatch, its mono.fetch_wait and the rest of its
+        # mono.consume, and what `spans` recorded since the previous entry
+        # (perfmon.Spans.fold). Spans a caller records after the call
+        # (MonoSystem's window BA and place recognition) fold into the
+        # next entry
+        self.timing_log = None
+        self.spans = Spans(self)
 
         self.poses = PoseTable.empty(device=dev)
         self.points = PointTable.empty(device=dev)
@@ -164,6 +187,7 @@ class MonoFrontend:
         if self._cand_np is None or not np.array_equal(self._cand_np,
                                                        cand_ids):
             self._cand_np = cand_ids.copy()
+            self.spans.sync("cand.upload")  # from pageable memory
             self._cand_dev = torch.as_tensor(cand_ids.astype(np.int32),
                                              device=self.device)
         return self._cand_dev
@@ -188,6 +212,8 @@ class MonoFrontend:
         return out
 
     def _pose_dev(self):
+        if self._dev_R_cw is None:
+            self.spans.sync("pose.upload", 2)  # R and t, pageable
         R = (self._dev_R_cw if self._dev_R_cw is not None
              else torch.as_tensor(self._R_cw, dtype=torch.float32,
                                   device=self.device))
@@ -212,6 +238,9 @@ class MonoFrontend:
                 x = x.to(self.device)
                 return x if key == "left_dev" else x[0]
         left = frame["left"]
+        if isinstance(left, torch.Tensor) and left.device == self.device:
+            return left
+        self.spans.sync("frame.upload")  # from pageable memory
         if isinstance(left, torch.Tensor):
             return left.to(self.device)
         return torch.as_tensor(np.asarray(left), device=self.device)
@@ -219,12 +248,13 @@ class MonoFrontend:
     # -- frame processing --------------------------------------------------- #
     def _run_step(self, frame, cand_ids):
         R_cw, t_cw = self._pose_dev()
-        out = mono_step(
-            self._image_dev(frame), R_cw, t_cw, self._actkey_dev(),
-            self.poses, self.points, self.Lam, self._cand_device(cand_ids),
-            self._conv_dev, self._pw_dev, self._cam_params,
-            self._cam_statics, self.levels,
-            float(self.cfg.ui.max_reproj_error), 0.18)
+        img, cand = self._image_dev(frame), self._cand_device(cand_ids)
+        with self.spans.span("mono.step"):
+            out = self._step(
+                img, R_cw, t_cw, self._actkey_dev(), self.poses, self.points,
+                self.Lam, cand, self._conv_dev, self._pw_dev,
+                self._cam_params, self._cam_statics, self.levels,
+                float(self.cfg.ui.max_reproj_error), 0.18)
         self.points = out.points
         self.Lam = out.Lam
         self._dev_R_cw = out.R_cw
@@ -239,6 +269,7 @@ class MonoFrontend:
             else PoseRT(np.eye(3), np.zeros(3))
         R_kw = np.asarray(T_kw.R, np.float32)
         t_kw = np.asarray(T_kw.t, np.float32)
+        self.spans.sync("keyframe.pose", 3)  # R, t and the valid flag
         self.poses = self.poses.set(kf_id, SE3(torch.as_tensor(R_kw),
                                                torch.as_tensor(t_kw)))
         self.pose_np[kf_id] = (R_kw.copy(), t_kw.copy())
@@ -248,21 +279,27 @@ class MonoFrontend:
 
         # the pyramid of the (f32) left image, for spawning only
         left = frame["left"] if "left" in frame else self._image_dev(frame)
+        if not isinstance(left, torch.Tensor) or left.device != self.device:
+            self.spans.sync("frame.upload")  # from pageable memory
         if not isinstance(left, torch.Tensor):
             left = torch.as_tensor(np.asarray(left))
         img = normalize_frames(left.to(self.device)).to(torch.float32)
-        self._spawn(build_pyramid(img, self.levels), kf_id, None)
+        with self.spans.span("mono.spawn"):
+            self._spawn(build_pyramid(img, self.levels), kf_id, None)
         self.trajectory.append((self.frame_id, self._world_pose()))
 
     def process_frame(self, frame: dict):
         """Track one frame synchronously. Returns (success, dropped)."""
         # adopt BEFORE dispatch: the step seeds from the adopted chain
         self.adopt_pending_ba()
-        self.frame_id = frame.get("frame_id", self.frame_id + 1)
-        cand_ids = self._collect_candidates()
-        out = self._run_step(frame, cand_ids)
-        return self._consume(self.frame_id, cand_ids, out,
-                             Fetch(out.packed).result(), self._kf_epoch)
+        with self.spans.span("mono.dispatch"):
+            self.frame_id = frame.get("frame_id", self.frame_id + 1)
+            cand_ids = self._collect_candidates()
+            out = self._run_step(frame, cand_ids)
+        res = self._fetch_consume(self.frame_id, cand_ids, out,
+                                  Fetch(out.packed), self._kf_epoch)
+        self._log_entry(self.frame_id)
+        return res
 
     def process_frame_pipelined(self, frame: dict):
         """Dispatch this frame; consume the one dispatched `pipeline_depth`
@@ -273,16 +310,19 @@ class MonoFrontend:
         # correction attached; this frame dispatches against the adopted
         # chain
         self.adopt_pending_ba()
-        self.frame_id = frame.get("frame_id", self.frame_id + 1)
-        cand_ids = self._collect_candidates()
-        out = self._run_step(frame, cand_ids)
-        self._pending.append([self.frame_id, cand_ids, out, Fetch(out.packed),
-                              self._kf_epoch, None])
+        with self.spans.span("mono.dispatch"):
+            self.frame_id = frame.get("frame_id", self.frame_id + 1)
+            cand_ids = self._collect_candidates()
+            out = self._run_step(frame, cand_ids)
+            self._pending.append([self.frame_id, cand_ids, out,
+                                  Fetch(out.packed), self._kf_epoch, None])
         if len(self._pending) <= max(1, self.pipeline_depth):
+            self._log_entry(self.frame_id)
             return None
         fid, cand_ids, out, fut, epoch, corr = self._pending.popleft()
-        ok, dropped = self._consume(fid, cand_ids, out, fut.result(), epoch,
-                                    corr)
+        ok, dropped = self._fetch_consume(fid, cand_ids, out, fut, epoch,
+                                          corr)
+        self._log_entry(fid)
         return ok, dropped, fid
 
     def flush_pipeline(self):
@@ -291,13 +331,35 @@ class MonoFrontend:
         results = []
         while self._pending:
             fid, cand_ids, out, fut, epoch, corr = self._pending.popleft()
-            ok, dropped = self._consume(fid, cand_ids, out, fut.result(),
-                                        epoch, corr)
+            ok, dropped = self._fetch_consume(fid, cand_ids, out, fut, epoch,
+                                              corr)
+            self._log_entry(fid)
             results.append((ok, dropped, fid))
             if not ok:
                 self._pending.clear()
                 break
         return results
+
+    def _log_entry(self, frame_id):
+        """Append the frame's timing_log entry (when there is a log)."""
+        if self.timing_log is None:
+            return
+        f = self.spans.fold()
+        wait = span_s(f, "mono.fetch_wait")
+        self.timing_log.append((frame_id, span_s(f, "mono.dispatch"), wait,
+                                span_s(f, "mono.consume") - wait, f))
+
+    @spanned("mono.consume")
+    def _fetch_consume(self, frame_id, cand_ids, out, fut, epoch, corr=None):
+        """The frame's packed download (waiting where it has not landed),
+        then the policy on it."""
+        if fut.done():
+            pk = fut.result()
+        else:
+            self.spans.sync("frame.fetch")
+            with self.spans.span("mono.fetch_wait"):
+                pk = fut.result()
+        return self._consume(frame_id, cand_ids, out, pk, epoch, corr)
 
     def _consume(self, frame_id, cand_ids, out, pk, epoch, corr=None):
         C = CAND_CAP
@@ -337,7 +399,8 @@ class MonoFrontend:
         if (not switched and epoch == self._kf_epoch
                 and self._shall_drop_keyframe(
                     quad_counts, float(t_norm), float(mean_track_len))):
-            self._add_new_keyframe(out)
+            with self.spans.span("mono.spawn"):
+                self._add_new_keyframe(out)
             dropped = True
         return True, dropped
 
@@ -447,13 +510,18 @@ class MonoFrontend:
             t_uv0[:n] = tracked_uv[:n]
             t_val[:n] = True
 
+        # the tracked uv and valid uploads, and the new points' Lambda
+        self.spans.sync("spawn.upload", 3)
         self.points, self.Lam, payloads = spawn_points_mono(
             pyr, torch.as_tensor(t_uv0, device=self.device),
             torch.as_tensor(t_val, device=self.device),
             self.points, self.Lam, starts, kf_id, self.prior_idepth,
             self._cam_params, self._cam_statics, self.levels, tuple(caps),
             float(self.cfg.frontend.newpoint_clearance))
-        pk = Fetch(payloads).result()
+        fut = Fetch(payloads)
+        if not fut.done():
+            self.spans.sync("spawn.fetch")
+        pk = fut.result()
         all_ids, all_uv = [], []
         off = 0
         for l, cap in enumerate(caps):
@@ -490,6 +558,7 @@ class MonoFrontend:
         # frames behind the caller's frame)
         self.last_kf_img = out.pyr[0]
         kf_id = self._new_keyframe_id()
+        self.spans.sync("keyframe.pose", 3)  # R, t and the valid flag
         self.poses = self.poses.set(kf_id, SE3(torch.as_tensor(self._R_cw),
                                                torch.as_tensor(self._t_cw)))
         self.pose_np[kf_id] = (self._R_cw.copy(), self._t_cw.copy())
@@ -523,6 +592,7 @@ class MonoFrontend:
     # the double window: poses, points, observations, relative-pose edges
     DWO_CAPS = (24, 1024, 3072, 96)
 
+    @spanned("mono.window_ba")
     def window_ba(self, window: int = 5, iters: int = 4,
                   sync: bool = True, dwo: bool = False, outer: int = 16):
         """Joint pose + structure refinement over the last `window`
@@ -558,7 +628,9 @@ class MonoFrontend:
         meta["psi_out"] = psi_out
         meta["gen"] = self._map_gen
         if sync:
-            self._writeback_window(meta, Fetch(packed).result())
+            with self.spans.span("mono.adopt"):
+                self._writeback_window(meta, self._window_result(
+                    Fetch(packed)))
             return self.last_ba_chi2
         meta["fut"] = Fetch(packed)
         self._pending_ba = meta
@@ -575,11 +647,19 @@ class MonoFrontend:
         if not force and not pb["fut"].done():
             return False
         self._pending_ba = None
-        packed = pb["fut"].result()
-        if pb["gen"] != self._map_gen:
-            return False  # stale across a loop closure / relocalization
-        self._writeback_window(pb, packed)
+        with self.spans.span("mono.adopt"):
+            packed = self._window_result(pb["fut"])
+            if pb["gen"] != self._map_gen:
+                return False  # stale across a loop closure / relocalization
+            self._writeback_window(pb, packed)
         return True
+
+    def _window_result(self, fut):
+        """A window solve's packed download, waiting where it has not
+        landed."""
+        if not fut.done():
+            self.spans.sync("window.fetch")
+        return fut.result()
 
     def invalidate_pending_ba(self):
         """The map gauge changed (loop-closure re-gauge, relocalization):
@@ -710,6 +790,7 @@ class MonoFrontend:
         pids_pad = np.zeros(L_cap, np.int64)
         pids_pad[: len(pts)] = pts
         dev = self.device
+        self.spans.sync("window.upload")  # the point ids, pageable
         psi_pad = self.points.psi[torch.as_tensor(pids_pad, device=dev)]
         anch_pad = np.zeros(L_cap, np.int32)
         anch_pad[: len(pts)] = anchor
@@ -758,6 +839,7 @@ class MonoFrontend:
         def up(x):
             return torch.as_tensor(x, device=dev)
 
+        self.spans.sync("window.upload", 17)  # the problem's arrays
         prob = BAProblem(
             R=up(Rs), t=up(ts), pose_valid=up(pv), pose_fixed=up(pf),
             psi=psi_pad, anchor_slot=up(anch_pad), point_valid=up(lval),
@@ -781,6 +863,8 @@ class MonoFrontend:
         self.last_ba_chi2 = (float(packed[P_cap * 12]),
                              float(packed[P_cap * 12 + 1]))
         dev = self.device
+        # the keyframe ids, poses and point ids, from pageable memory
+        self.spans.sync("adopt.upload", 4)
         kidx = np.asarray(list(kf_ids), np.int64)
         sidx = np.asarray([slot[k] for k in kf_ids], np.int64)
         self.poses = self.poses.set_many(

@@ -41,6 +41,22 @@ from scavislam_tpu_torch.ops.ransac import draw_hypotheses, ransac_sim3
 MATCH_CAP = 256  # padded correspondence capacity per loop check
 
 
+def _sync(fe, site: str, n: int = 1):
+    """Count the next `n` synchronizing host calls at `site` in the
+    frontend's ``spans`` (an upload from pageable memory, a host read; a
+    site ending in ``.fetch`` is a :class:`Fetch`'s wait)."""
+    spans = getattr(fe, "spans", None)
+    if spans is not None:
+        spans.sync(site, n)
+
+
+def _fetch_wait(fe, site: str, fut: Fetch):
+    """Count a :class:`Fetch` about to be waited for, where it has not
+    landed (never on the CPU)."""
+    if not fut.done():
+        _sync(fe, site)
+
+
 def _zmssd_all_pairs(pa, pb, va, vb):
     """All-pairs zero-mean SSD between two patch stacks (Na, 16, 16) x
     (Nb, 16, 16): |a|^2 + |b|^2 - 2 a b^T, one matmul. Returns (Na, Nb)."""
@@ -74,8 +90,11 @@ def _kf_points_padded(fe, kf_id, cap=MATCH_CAP):
     n = min(len(ids), cap)
     ids_pad[:n] = ids[:n]
     val[:n] = True
+    _sync(fe, "place.upload")
     idx = torch.as_tensor(ids_pad, device=fe.device)
-    lam_qq = Fetch(fe.Lam[idx][:, 2, 2]).result()
+    fut = Fetch(fe.Lam[idx][:, 2, 2])
+    _fetch_wait(fe, "place.fetch", fut)
+    lam_qq = fut.result()
     val &= lam_qq > fe.conv_q_info
     return ids_pad, val
 
@@ -91,11 +110,14 @@ def match_keyframes(fe, kf_a: int, kf_b: int, zmssd_thr: float = 0.18,
     if va.sum() < 3 or vb.sum() < 3:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     dev = fe.device
+    _sync(fe, "place.upload", 4)  # two id lists, two masks
     pa = fe.points.patch[torch.as_tensor(ids_a, device=dev)]
     pb = fe.points.patch[torch.as_tensor(ids_b, device=dev)]
-    score = Fetch(_zmssd_all_pairs(
+    fut = Fetch(_zmssd_all_pairs(
         pa, pb, torch.as_tensor(va, device=dev),
-        torch.as_tensor(vb, device=dev))).result()
+        torch.as_tensor(vb, device=dev)))
+    _fetch_wait(fe, "place.fetch", fut)
+    score = fut.result()
     best_b = score.argmin(1)
     best_s = score.min(1)
     second = np.partition(score, 1, axis=1)[:, 1]
@@ -112,8 +134,10 @@ def _anchored_xyz_padded(fe, ids):
     ids_pad = np.zeros(MATCH_CAP, np.int64)
     n = min(len(ids), MATCH_CAP)
     ids_pad[:n] = ids[:n]
-    psi = Fetch(fe.points.psi[torch.as_tensor(ids_pad, device=fe.device)]
-                ).result()
+    _sync(fe, "place.upload")
+    fut = Fetch(fe.points.psi[torch.as_tensor(ids_pad, device=fe.device)])
+    _fetch_wait(fe, "place.fetch", fut)
+    psi = fut.result()
     q = np.maximum(psi[:, 2:3], 1e-9)
     return np.concatenate([psi[:, :2] / q, 1.0 / q], axis=1), n
 
@@ -142,14 +166,17 @@ def estimate_sim3(fe, kf_a: int, kf_b: int, inlier_thr: float = 1.5,
     idx = torch.as_tensor(idx if isinstance(idx, torch.Tensor)
                           else np.asarray(idx), device=dev)
     cam0 = fe.cams[0]
+    _sync(fe, "place.upload", 3)  # both point sets and the mask
     _s, _R, _t, inl, cnt = ransac_sim3(
         idx, torch.as_tensor(xb, dtype=torch.float32, device=dev),
         torch.as_tensor(xa, dtype=torch.float32, device=dev),
         torch.as_tensor(valid, device=dev),
         (cam0.focal, cam0.pp[0], cam0.pp[1], cam0.baseline),
         inlier_thr=inlier_thr)
-    out = Fetch(torch.cat([cnt.reshape(1).to(torch.float32),
-                           inl.to(torch.float32)])).result()
+    fut = Fetch(torch.cat([cnt.reshape(1).to(torch.float32),
+                           inl.to(torch.float32)]))
+    _fetch_wait(fe, "place.fetch", fut)
+    out = fut.result()
     cnt = int(out[0])
     if cnt < min_inliers:
         return None, cnt
@@ -182,6 +209,7 @@ def close_loop_sim3(fe, kf_query: int, kf_loop: int, S_q_from_l: Sim3,
     def up(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
+    _sync(fe, "closure.upload", 2)  # the nodes' R and t
     nodes = Sim3(up(np.stack([fe.pose_np[k][0] for k in kf_ids])),
                  up(np.stack([fe.pose_np[k][1] for k in kf_ids])),
                  torch.ones(n, dtype=torch.float32, device=dev))
@@ -201,13 +229,18 @@ def close_loop_sim3(fe, kf_query: int, kf_loop: int, S_q_from_l: Sim3,
     eR.append(np.asarray(S_q_from_l.R))
     et.append(np.asarray(S_q_from_l.t))
     es.append(float(S_q_from_l.s))
+    _sync(fe, "closure.upload", 3)  # the edges' R, t and s
     edges = Sim3(up(np.stack(eR)), up(np.stack(et)), up(np.asarray(es)))
+    # the edges' ends go up, the solve writes its gauge flag from the host
+    # and reads its chi2 history back
+    _sync(fe, "closure.solve", 4)
     out, _hist = optimize_sim3_pose_graph(
         nodes, torch.as_tensor(ei, device=dev),
         torch.as_tensor(ej, device=dev), edges,
         torch.ones(len(ei), dtype=torch.bool, device=dev), iters=iters)
-    pk = Fetch(torch.cat([out.R.reshape(-1), out.t.reshape(-1), out.s])
-               ).result()
+    fut = Fetch(torch.cat([out.R.reshape(-1), out.t.reshape(-1), out.s]))
+    _fetch_wait(fe, "closure.fetch", fut)
+    pk = fut.result()
     Rs = pk[: 9 * n].reshape(n, 3, 3)
     ts = pk[9 * n: 12 * n].reshape(n, 3)
     ss = pk[12 * n:]
@@ -231,6 +264,7 @@ def close_loop_sim3(fe, kf_query: int, kf_loop: int, S_q_from_l: Sim3,
         new_t[i] = t
         scales[k] = s
     # one device scatter for all keyframe poses
+    _sync(fe, "closure.upload", 3)  # the ids, R and t
     fe.poses = fe.poses.set_many(
         torch.as_tensor(np.asarray(kf_ids, np.int64), device=dev),
         up(new_R), up(new_t))
@@ -238,6 +272,7 @@ def close_loop_sim3(fe, kf_query: int, kf_loop: int, S_q_from_l: Sim3,
     s_per_point = np.ones(MAX_POINTS, np.float32)
     for k, s in scales.items():
         s_per_point[fe._meta_anchor == k] = s
+    _sync(fe, "closure.upload")  # the per-point scales
     fe.points = fe.points._replace(
         psi=_regauge_psi(fe.points.psi, up(s_per_point)))
     # the chain continues from the corrected world pose: the current
@@ -290,6 +325,12 @@ class MonoPlaceRecognizer(PlaceRecognizer):
 
     def hypotheses(self, n: int) -> torch.Tensor:
         return seeded_hypotheses(n, 0, self.device)
+
+    def describe(self, img, disp):
+        if self.device.type == "cuda":
+            # its packed download, read at once behind the description
+            _sync(self.fe, "describe.fetch")
+        return super().describe(img, disp)
 
     def _geometric_check(self, query, cand):
         S, n_inl = estimate_sim3(self.fe, query.kf_id, cand.kf_id,

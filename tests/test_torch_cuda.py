@@ -327,6 +327,53 @@ def test_frontend_syncs_are_counted_where_the_card_synchronizes(
     assert warned == counted > 0
 
 
+@pytest.mark.cuda
+def test_mono_syncs_are_counted_where_the_card_synchronizes(cuda_device):
+    # MonoSystem as the mono.forward_arc cell runs it (device-resident
+    # uint8 stacks, the cell's forward arc at Config()'s 512x384 camera,
+    # depth 3, the DWO window BA, place recognition) over its first 60
+    # frames: tracking holds throughout, the first keyframe after frame 0
+    # spawns (frame 46), its window solve is dispatched and adopted, and
+    # it is indexed and queried
+    from scavislam_tpu_torch.models.frontend import _to_u8
+    from scavislam_tpu_torch.pipeline.mono_system import MonoSystem
+    cfg = Config()
+    cam = StereoCamera.create(cfg.cam.f, (cfg.cam.px, cfg.cam.py),
+                              (cfg.cam.width, cfg.cam.height),
+                              cfg.cam.baseline)
+    n = 60
+    seq = SyntheticSequence(cam, n_frames=n, kind="forward_arc",
+                            planes=closed_box(), step=0.01,
+                            device=cuda_device)
+    frames = []
+    for i in range(n):
+        f = seq.frame(i)
+        st = torch.stack([_to_u8(f["left"]), _to_u8(f["right"])])
+        frames.append({"frame_id": i, "stacked_dev": st})
+    s = MonoSystem(cam, cfg, pipelined=True, pipeline_depth=3,
+                   window_ba=True, dwo=True, loop_close=True,
+                   device=cuda_device)
+    s.process_first_frame(frames[0])
+    fe = s.frontend
+    kf0 = fe.next_kf
+    indexed0 = s.place_recognizer.counters["indexed"]
+
+    def run():
+        for f in frames[1:]:
+            assert s.process_frame(f), f["frame_id"]
+            assert not s.lost, f["frame_id"]
+        s.finish()
+
+    uncounted, warned, counted = _warned_vs_counted(fe.spans, run)
+    assert uncounted == {}
+    assert [fid for fid, _ in s.trajectory] == list(range(n))
+    assert fe.next_kf > kf0  # a spawn ran
+    assert fe.spans.syncs["window.upload"] > 0  # its window was solved
+    assert fe.spans.syncs["adopt.upload"] > 0  # and adopted
+    assert s.place_recognizer.counters["indexed"] > indexed0  # and queried
+    assert warned == counted > 0
+
+
 def _ba_problem(device, seed=11, P=8, L=128, O=1024, E=16):
     """A seeded BA problem: 6 keyframes sliding along x in front of points
     at 3-9 m, every keyframe observing every point with 0.5 px noise, poses
