@@ -153,7 +153,9 @@ non-zero before the result line):
    as uint8, MonoFrontend pipelined at depth 3 after a warm-up run that
    also spawns: every frame in the trajectory, >= 2 keyframes, the
    Sim3-aligned ATE under 0.06 x the path length
-   (tests/test_mono.py:88-97); frames/s; the eager mono_step on the run's
+   (tests/test_mono.py:88-97); frames/s; the frontend's step graph
+   captured once and replayed at every other frame (its captures and
+   replays printed; more than one capture fails); the eager mono_step on the run's
    last state (wall ms and ms between CUDA events, enqueued with no
    synchronizing call under sync debug mode "error") and the step
    captured as a CUDA graph (replay ms, replay torch.equal to the eager
@@ -1313,6 +1315,7 @@ def _phase_mono(cam, cfg, dev, tmp):
     failed, dt = _mono_run(fe, frames, pipelined=True)
     launches = bm.launches + bmb.launches
     fps = (MONO_FRAMES - 1) / dt
+    captures, replays = fe._step.captures, fe._step.replays
     fids = [fid for fid, _ in fe.trajectory]
     ate = _sim3_ate(_centers([T for _, T in fe.trajectory]), gt_c[fids])
     # the eager step alone, on the run's final state and last frame
@@ -1364,7 +1367,8 @@ def _phase_mono(cam, cfg, dev, tmp):
           f"frames in the trajectory, {fe.next_kf} keyframes, Sim3 ATE "
           f"{ate:.5f} m (bar {ate_max:.4f} m = {MONO_ATE_FRAC} x path "
           f"{path_len:.3f} m), {fps:.2f} frames/s over frames 1.."
-          f"{MONO_FRAMES - 1}; block-matching launches {launches} "
+          f"{MONO_FRAMES - 1}; the frontend's step graph: {captures} "
+          f"capture, {replays} replays; block-matching launches {launches} "
           f"({launches / MONO_FRAMES:.0f} per frame); eager mono_step "
           f"{float(np.median(walls)):.3f} ms wall, {ms_ev:.3f} ms between "
           f"CUDA events (medians of {MONO_TIMING_RUNS}); synchronizing "
@@ -1378,6 +1382,10 @@ def _phase_mono(cam, cfg, dev, tmp):
               f"({len(fids)} frames in the trajectory)")
     if fe.next_kf < 2:
         _fail("mono (a): fewer than 2 keyframes")
+    if captures != 1 or replays != MONO_FRAMES - 2:
+        _fail(f"mono (a): the frontend's step graph captured {captures} "
+              f"times and replayed {replays} times over {MONO_FRAMES - 1} "
+              "steps")
     if not ate < ate_max:
         _fail(f"mono (a): Sim3 ATE {ate} m over the bar {ate_max} m")
     if synced != "none":

@@ -21,8 +21,11 @@ Per frame the host uploads the image (unless the frame carries it on the
 device: ``left_dev``, or ``stacked_dev`` whose plane 0 is taken) and the
 candidate ids when they change, and downloads one packed vector through a
 :class:`~scavislam_tpu_torch.models.frontend.Fetch` (a pinned copy behind a
-CUDA event). Pipelined, the policy runs ``pipeline_depth`` frames behind
-the dispatch; the device pose chain advances without the host.
+CUDA event). On a card the step is one CUDA graph replay
+(``step_graph.MonoStepGraph``, captured at the first frame stepped), on
+the CPU the eager ``mono_step``. Pipelined, the policy runs
+``pipeline_depth`` frames behind the dispatch; the device pose chain
+advances without the host.
 
 Window BA (``window_ba``): the last-K window or, with ``dwo=True``, the
 covisibility double window with frozen marginalized relative-pose
@@ -52,7 +55,7 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3, PoseRT
 from scavislam_tpu_torch.models.ba_solver import BAProblem, solve_ba
-from scavislam_tpu_torch.models.frontend import Fetch
+from scavislam_tpu_torch.models.frontend import Fetch, _project_so3
 from scavislam_tpu_torch.models.frontend_step import (
     level_sections,
     normalize_frames,
@@ -65,6 +68,7 @@ from scavislam_tpu_torch.models.map_store import (
     scatter_psi,
 )
 from scavislam_tpu_torch.models.mono_step import mono_step, spawn_points_mono
+from scavislam_tpu_torch.models.step_graph import MonoStepGraph
 from scavislam_tpu_torch.ops.image import build_pyramid
 from scavislam_tpu_torch.utils.config import Config
 from scavislam_tpu_torch.utils.perfmon import Spans, span_s, spanned
@@ -109,8 +113,10 @@ class MonoFrontend:
         self._pw_dev = torch.full((), self.prior_weight, dtype=torch.float32,
                                   device=dev)
         self._actkey_cache = None
-        # the frame step, an attribute as in StereoFrontend (eager here)
-        self._step = mono_step
+        # the frame step, as in StereoFrontend: CUDA graph replays on a
+        # card (captured at the first frame stepped), eager on the CPU
+        self._step = (MonoStepGraph() if self.device.type == "cuda"
+                      else mono_step)
         # when set to a list, each call that steps a frame (and each frame
         # flush_pipeline consumes) appends one (frame_id, dispatch_s,
         # fetch_wait_s, consume_s, folded) tuple: the seconds of its
@@ -371,7 +377,7 @@ class MonoFrontend:
             # (T_cw' = T_cw_packet @ T_akw_old^-1 T_akw_new)
             R_c, t_c = corr
             t_cw = R_cw @ t_c + t_cw
-            R_cw = R_cw @ R_c
+            R_cw = _project_so3(R_cw @ R_c)
         n_matched, n_gated, n_conv, t_norm, mean_track_len = pk[24:29]
         quad_counts = pk[30:34]
         gate = pk[34:34 + C] > 0.5
@@ -872,14 +878,19 @@ class MonoFrontend:
             torch.as_tensor(np.ascontiguousarray(R_np[sidx]), device=dev),
             torch.as_tensor(np.ascontiguousarray(t_np[sidx]), device=dev))
         # rebase the tracking chain through the actkey correction before
-        # overwriting the mirrors (T_cw = T_c_ak @ T_akw_new)
+        # overwriting the mirrors (T_cw = T_c_ak @ T_akw_new), projected
+        # back onto SO(3), as the corrected poses in _consume are:
+        # unprojected, the f32 products' non-orthonormality roughly triples
+        # at every adoption (the rebased chain seeds the next keyframe's
+        # pose, which the next rebase composes again) until the seeded
+        # matching fails
         if self.actkey_id in slot:
             Rk_old, tk_old = self.pose_np[self.actkey_id]
             R_cak = self._R_cw @ Rk_old.T
             t_cak = self._t_cw - R_cak @ tk_old
             Rk_new = R_np[slot[self.actkey_id]]
             tk_new = t_np[slot[self.actkey_id]]
-            self._R_cw = (R_cak @ Rk_new).astype(np.float32)
+            self._R_cw = _project_so3(R_cak @ Rk_new)
             self._t_cw = (R_cak @ tk_new + t_cak).astype(np.float32)
             self._dev_R_cw = None
             self._dev_t_cw = None

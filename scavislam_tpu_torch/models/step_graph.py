@@ -1,7 +1,8 @@
-"""The stereo frame step replayed as a CUDA graph: the port's counterpart
-of the twin's ``jax.jit`` of ``models.frontend_step.frontend_step``, and
-the same for the backend's two programs (its solve and its registration)
-and the multistream steps' batched programs
+"""The frame steps replayed as CUDA graphs: the port's counterpart of the
+twin's ``jax.jit`` of ``models.frontend_step.frontend_step`` (stereo) and
+of ``models.mono_step.mono_step`` (monocular), and the same for the
+backend's two programs (its solve and its registration) and the
+multistream steps' batched programs
 (``parallel.multistream.OverDp``: the batched block-matching call and the
 vmapped step of a pool tick in one graph), which the twin jits too.
 
@@ -10,10 +11,12 @@ active keyframe is a device scalar), so one frame's tens of thousands of
 kernel launches can be captured once and replayed. ``GraphedFn(fn)`` holds
 one ``torch.cuda.CUDAGraph`` of ``fn`` per static key: the shapes, dtypes
 and devices of the tensor arguments and the values of every other
-argument (for the step: the stack's 2 uint8 planes, or 3 f32 planes with
-an external disparity; the table, cloud and candidate capacities; the
-camera floats, levels, disparities, stereo method and options, the
-reprojection bound, the dense subsampling and sampler).
+argument (for the stereo step: the stack's 2 uint8 planes, or 3 f32
+planes with an external disparity; the table, cloud and candidate
+capacities; the camera floats, levels, disparities, stereo method and
+options, the reprojection bound, the dense subsampling and sampler; for
+the mono step: the uint8 plane, the table and candidate capacities, the
+camera floats, levels, the reprojection bound and the ZMSSD threshold).
 
 - Capture. The first call with a key runs ``fn`` eagerly on a side stream
   (the warm-up that ``torch.cuda.graphs`` asks for: it builds and loads
@@ -57,6 +60,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from scavislam_tpu_torch.models.frontend_step import frontend_step
+from scavislam_tpu_torch.models.mono_step import mono_step
 from scavislam_tpu_torch.ops import stereo_bm
 
 def _clone(x):
@@ -191,5 +195,20 @@ class StepGraph(GraphedFn):
     def __call__(self, *args, **kwargs):
         if not isinstance(args[7], torch.Tensor):
             raise TypeError("StepGraph takes the active keyframe as a "
+                            "device scalar")
+        return super().__call__(*args, **kwargs)
+
+
+class MonoStepGraph(GraphedFn):
+    """``mono_step`` as CUDA graph replays (``mono_step``'s signature), as
+    ``StepGraph`` is for the stereo step: the active keyframe (argument 3)
+    must be a device scalar."""
+
+    def __init__(self):
+        super().__init__(mono_step)
+
+    def __call__(self, *args, **kwargs):
+        if not isinstance(args[3], torch.Tensor):
+            raise TypeError("MonoStepGraph takes the active keyframe as a "
                             "device scalar")
         return super().__call__(*args, **kwargs)

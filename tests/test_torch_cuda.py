@@ -2,9 +2,9 @@
 PyTorch versions, and the port's paths on the card (the backend's solve,
 the place recognizer's describe and geometric check, threaded SlamSystem
 runs, BP and CSBP stereo, k-means) against the CPU; a debug view's one
-download; the sharded solve over the card listed twice; the stereo frame
-step and the backend's programs as CUDA graph replays against their eager
-calls. Every test here needs a CUDA card and skips without one.
+download; the sharded solve over the card listed twice; the stereo and
+mono frame steps and the backend's programs as CUDA graph replays against
+their eager calls. Every test here needs a CUDA card and skips without one.
 
 This file imports no JAX (the machine with the card has none), so on a card:
 
@@ -731,6 +731,76 @@ def test_mono_step_enqueues_without_sync_and_replays_as_graph(cuda_device):
     assert torch.equal(captured.packed, eager.packed)
     assert torch.equal(captured.Lam, eager.Lam)
     assert torch.equal(captured.points.psi, eager.points.psi)
+
+
+@pytest.mark.cuda
+def test_mono_frontend_replays_its_step_over_spawns_and_adoptions(
+        cuda_device):
+    # MonoFrontend on the card, pipelined at depth 3, over 24 frames of the
+    # forward arc with a parallax threshold of 0.12 (a keyframe every few
+    # frames). (a) Through MonoSystem with the double-window BA, so that
+    # window solves are adopted while frames are in flight: the step is a
+    # MonoStepGraph, captured once at the first frame stepped and replayed
+    # at every other, each call's outputs torch.equal to the eager mono_step
+    # on the same inputs. (b) Without the window BA, against a twin
+    # frontend whose step is the eager mono_step: the same keyframes and
+    # the same poses, bit for bit. (The window solve's index_add_ sums are
+    # unordered atomics, so two runs with it differ in the last bits
+    # whatever the step: (a) holds the step to the eager call per frame.)
+    from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+    from scavislam_tpu_torch.models.mono_step import mono_step
+    from scavislam_tpu_torch.models.step_graph import MonoStepGraph
+    from scavislam_tpu_torch.pipeline.mono_system import MonoSystem
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, ui=dataclasses.replace(
+        cfg.ui, parallax_thr=0.12))
+    seq = SyntheticSequence(MONO_CAM, n_frames=24, kind="forward_arc",
+                            step=0.035, device=cuda_device)
+    frames = [seq.frame(i) for i in range(24)]
+
+    def run(fe, window_ba):
+        s = MonoSystem(MONO_CAM, cfg, pipelined=True, pipeline_depth=3,
+                       window_ba=window_ba, dwo=True, frontend=fe)
+        s.process_first_frame(frames[0])
+        for f in frames[1:]:
+            assert s.process_frame(f), f["frame_id"]
+        s.finish()
+        torch.cuda.synchronize()
+        return fe
+
+    fe = MonoFrontend(MONO_CAM, cfg, device=cuda_device)
+    graph = fe._step
+    assert isinstance(graph, MonoStepGraph)
+    equal = []
+
+    def both(*args):
+        out = graph(*args)
+        eager = mono_step(*args)
+        equal.append(all(
+            torch.equal(a, b) for a, b in zip(
+                torch.utils._pytree.tree_leaves(out),
+                torch.utils._pytree.tree_leaves(eager))))
+        return out
+
+    fe._step = both
+    adopted = []
+    writeback = fe._writeback_window
+    fe._writeback_window = lambda *a: adopted.append(writeback(*a))
+    run(fe, window_ba=True)
+    assert fe.next_kf >= 3 and len(adopted) >= 2
+    assert len(equal) == len(frames) - 1 and all(equal)
+    assert (graph.captures, graph.replays) == (1, len(frames) - 2)
+
+    fg = run(MonoFrontend(MONO_CAM, cfg, device=cuda_device), False)
+    fe = MonoFrontend(MONO_CAM, cfg, device=cuda_device)
+    fe._step = mono_step
+    fe = run(fe, False)
+    assert (fg._step.captures, fg._step.replays) == (1, len(frames) - 2)
+    assert fg.next_kf == fe.next_kf >= 2
+    assert [i for i, _ in fg.trajectory] == list(range(len(frames)))
+    assert [i for i, _ in fe.trajectory] == list(range(len(frames)))
+    for (_, a), (_, b) in zip(fg.trajectory, fe.trajectory):
+        assert np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t)
 
 
 @pytest.mark.cuda

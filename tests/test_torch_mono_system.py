@@ -6,7 +6,8 @@ and synchronizing-call counts.
 Frames: the port's renderer on the CPU at the twin's 128x96 test camera,
 the forward arc at the mono tests' step; a parallax threshold of 0.12
 drops a keyframe every few frames, so that the window BA, its double
-window, place recognition and the pipelined adoption all run.
+window, place recognition and the pipelined adoption all run. A longer
+run of the same arc holds the pipelined adoptions' rebases on SO(3).
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.io.synthetic import SyntheticSequence
 from scavislam_tpu_torch.models import mono_loop
 from scavislam_tpu_torch.models.mono_frontend import MonoFrontend
+from scavislam_tpu_torch.models.mono_step import mono_step
 from scavislam_tpu_torch.pipeline.mono_system import MonoSystem
 from scavislam_tpu_torch.utils import perfmon
 from scavislam_tpu_torch.utils.config import Config
@@ -51,6 +53,18 @@ def _frames():
 
 def frames():
     return [dict(f) for f in _frames()]
+
+
+# frames of the arc for the adoption chain: the unprojected rebases lost
+# the first frame after a spawn near frame 56 (pipelined, depth 3)
+N_LONG = 60
+
+
+@functools.lru_cache(maxsize=None)
+def _long_frames():
+    seq = SyntheticSequence(CAM, n_frames=N_LONG, kind="forward_arc",
+                            step=0.035, device="cpu")
+    return tuple(seq.frame(i) for i in range(N_LONG))
 
 
 def old_loop(fe, detector, pipelined, window=True, dwo=True, inner=5,
@@ -155,6 +169,39 @@ def test_system_equals_the_old_mono_vo_loop(pipelined):
     assert s.loops_closed == loops and s.relocalizations == relocs
     assert (s.place_recognizer.counters["indexed"]
             == detector.counters["indexed"] == fe.next_kf)
+
+
+def test_cpu_steps_eagerly():
+    # the CUDA graph exists only on a card: on the CPU the frame step is
+    # mono_step itself
+    assert MonoFrontend(CAM, _cfg(), device="cpu")._step is mono_step
+
+
+def test_pipelined_adoptions_keep_every_pose_on_so3():
+    # 60 frames pipelined at depth 3 with the double-window BA: a keyframe
+    # every few frames, and each one's window solve adopted while three
+    # frames are in flight. Each adoption rebases the tracking chain and
+    # the in-flight frames through the active keyframe's correction, f32
+    # rotations composed on the host; unprojected, their non-orthonormality
+    # roughly tripled at every adoption (the rebased chain seeds the next
+    # keyframe, which the next rebase composes again) until the first
+    # frame after a spawn lost its pose. Every frame keeps a pose, and
+    # every keyframe's rotation and the chain's stay orthonormal to f32
+    # rounding
+    s = MonoSystem(CAM, _cfg(), pipelined=True, pipeline_depth=3,
+                   window_ba=True, dwo=True, device="cpu")
+    fs = [dict(f) for f in _long_frames()]
+    s.process_first_frame(fs[0])
+    for f in fs[1:]:
+        assert s.process_frame(f), f["frame_id"]
+    s.finish()
+    fe = s.frontend
+    assert [fid for fid, _ in fe.trajectory] == list(range(N_LONG))
+    assert fe.next_kf >= 12  # many adoptions, each a rebase
+    rots = [R for R, _ in fe.pose_np.values()] + [fe._R_cw]
+    for R in rots:
+        R = R.astype(np.float64)
+        assert np.abs(R @ R.T - np.eye(3)).max() < 1e-5
 
 
 def test_spans_are_off_without_a_log(monkeypatch):

@@ -28,6 +28,7 @@ from scavislam_tpu_torch.models import pose_optimizer as tpo
 from scavislam_tpu_torch.models.frontend import StereoFrontend
 from scavislam_tpu_torch.models.step_graph import (
     GraphedFn,
+    MonoStepGraph,
     StepGraph,
     _Captured,
 )
@@ -262,6 +263,17 @@ def test_step_graph_refuses_cpu_tensors_and_host_actkey(actkey):
                     torch.zeros(4, dtype=torch.int32), (), ())
     with pytest.raises(TypeError):
         GraphedFn(never)(torch.zeros(3), 1.0)
+
+
+@pytest.mark.parametrize("actkey", [torch.zeros((), dtype=torch.int64), 0],
+                         ids=["cpu_tensor", "host_int"])
+def test_mono_step_graph_refuses_cpu_tensors_and_host_actkey(actkey):
+    # as StepGraph: CPU tensors raise, never run; a host int for the
+    # active keyframe (the mono step's argument 3) raises too
+    with pytest.raises(TypeError):
+        MonoStepGraph()(torch.zeros(4, 4, dtype=torch.uint8), torch.eye(3),
+                        torch.zeros(3), actkey, (), (), torch.zeros(1, 3, 3),
+                        torch.zeros(4, dtype=torch.int32))
 
 
 def test_capture_records_launches_per_thread():
