@@ -955,7 +955,8 @@ def _phase_disk(cam, cfg, dev, seq, frames, fps_lc, tmp):
     t0 = time.perf_counter()
     g = FileGrabber(root, base_pattern=".*rectified.*", fmt="pnm",
                     device_prefetch=True, device=dev, timing_log=log)
-    got = [fe._prefetched(f) for f in g]  # as the frame step takes them
+    # as the frame step takes them
+    got = [fe._prefetched(f, "stacked_dev") for f in g]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     g.close()
@@ -2520,7 +2521,7 @@ def _pool_lanes(pool, args):
                 fe._cam_statics, fe.levels, fe._num_disp, False,
                 float(pool.cfg.ui.max_reproj_error), 2)
                for s in range(pool.B)]
-    kw = {"dense_subs": DENSE_SUBS_BATCHED, "dense_sample": "matmul"}
+    kw = {"dense_subs": DENSE_SUBS_BATCHED}
     graph = StepGraph()
     graph(*singles[0], **kw)  # the capture; its result is the warm-up's
     refs = [graph(*a, **kw) for a in singles]

@@ -64,20 +64,16 @@ def dense_state(clouds, intens, valids, J, device=None):
             tuple(tensor(j, device, torch.float32) for j in J))
 
 
-def load_frontend_state(fe, *, poses, points, dense, R_cw, t_cw, R_cak, t_cak,
-                        actkey_id, next_kf, next_point, kf_point_ids, covis,
-                        pose_np, meta_anchor, meta_level, frame_id):
-    """Put a port StereoFrontend into a given state: device tables (`poses`,
-    `points` as PoseTable/PointTable), the dense state tuple from
-    :func:`dense_state`, the world / actkey-relative pose, and the host
-    bookkeeping (ids, covisibility, keyframe poses, point metadata)."""
+def _load_map(fe, poses, points, R_cw, t_cw, actkey_id, next_kf, next_point,
+              kf_point_ids, covis, pose_np, meta_anchor, meta_level,
+              frame_id):
+    """The state both frontends keep (``host_frontend.HostFrontend``): the
+    device tables, the world pose of the chain (to be uploaded again), the
+    keyframe bookkeeping and the point metadata."""
     fe.poses = poses
     fe.points = points
-    (fe._prev_clouds, fe._prev_intens, fe._prev_valids, fe._prev_J) = dense
     fe._R_cw = np.asarray(R_cw, np.float32).copy()
     fe._t_cw = np.asarray(t_cw, np.float32).copy()
-    fe._R_cak = np.asarray(R_cak, np.float32).copy()
-    fe._t_cak = np.asarray(t_cak, np.float32).copy()
     fe._dev_R_cw = None
     fe._dev_t_cw = None
     fe.actkey_id = int(actkey_id)
@@ -94,6 +90,21 @@ def load_frontend_state(fe, *, poses, points, dense, R_cw, t_cw, R_cak, t_cak,
     fe._meta_level = np.asarray(meta_level, np.int64).copy()
     fe.frame_id = int(frame_id)
     fe._cand_np = None
+
+
+def load_frontend_state(fe, *, poses, points, dense, R_cw, t_cw, R_cak, t_cak,
+                        actkey_id, next_kf, next_point, kf_point_ids, covis,
+                        pose_np, meta_anchor, meta_level, frame_id):
+    """Put a port StereoFrontend into a given state: device tables (`poses`,
+    `points` as PoseTable/PointTable), the dense state tuple from
+    :func:`dense_state`, the world / actkey-relative pose, and the host
+    bookkeeping (ids, covisibility, keyframe poses, point metadata)."""
+    _load_map(fe, poses, points, R_cw, t_cw, actkey_id, next_kf, next_point,
+              kf_point_ids, covis, pose_np, meta_anchor, meta_level,
+              frame_id)
+    (fe._prev_clouds, fe._prev_intens, fe._prev_valids, fe._prev_J) = dense
+    fe._R_cak = np.asarray(R_cak, np.float32).copy()
+    fe._t_cak = np.asarray(t_cak, np.float32).copy()
     return fe
 
 
@@ -111,30 +122,14 @@ def load_mono_state(fe, *, poses, points, Lam, R_cw, t_cw, actkey_id,
     from scavislam_tpu_torch.core.lie import PoseRT
 
     dev = fe.device
-    fe.poses = PoseTable(*(x.to(dev) for x in poses))
-    fe.points = PointTable(*(x.to(dev) for x in points))
+    _load_map(fe, PoseTable(*(x.to(dev) for x in poses)),
+              PointTable(*(x.to(dev) for x in points)), R_cw, t_cw,
+              actkey_id, next_kf, next_point, kf_point_ids, covis, pose_np,
+              meta_anchor, meta_level, frame_id)
     fe.Lam = tensor(Lam, dev, torch.float32)
-    fe._R_cw = np.asarray(R_cw, np.float32).copy()
-    fe._t_cw = np.asarray(t_cw, np.float32).copy()
-    fe._dev_R_cw = None
-    fe._dev_t_cw = None
-    fe.actkey_id = int(actkey_id)
-    fe._actkey_cache = None
-    fe.next_kf = int(next_kf)
-    fe.next_point = int(next_point)
-    fe.kf_point_ids = {int(k): np.asarray(v, np.int64).copy()
-                       for k, v in kf_point_ids.items()}
     fe.kf_obs = {int(k): (np.asarray(v[0], np.int64).copy(),
                           np.asarray(v[1], np.float32).copy())
                  for k, v in kf_obs.items()}
-    fe.covis = {int(k): {int(a): int(c) for a, c in v.items()}
-                for k, v in covis.items()}
-    fe.pose_np = {int(k): (np.asarray(v[0], np.float32).copy(),
-                           np.asarray(v[1], np.float32).copy())
-                  for k, v in pose_np.items()}
-    fe._meta_anchor = np.asarray(meta_anchor, np.int64).copy()
-    fe._meta_level = np.asarray(meta_level, np.int64).copy()
-    fe.frame_id = int(frame_id)
     fe.edge_constraints = {
         (int(a), int(b)): tuple(np.asarray(x, np.float32).copy() for x in c)
         for (a, b), c in (edge_constraints or {}).items()}
@@ -142,7 +137,6 @@ def load_mono_state(fe, *, poses, points, Lam, R_cw, t_cw, actkey_id,
     fe._map_gen = int(map_gen)
     fe.trajectory = [(int(f), PoseRT.from_any(T))
                      for f, T in (trajectory or [])]
-    fe._cand_np = None
     fe._pending.clear()
     fe._pending_ba = None
     return fe

@@ -41,7 +41,7 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import SE3, PoseRT
 from scavislam_tpu_torch.models.dense_tracker import to_device_pose
-from scavislam_tpu_torch.models.frontend import Fetch, _upload
+from scavislam_tpu_torch.models.host_frontend import Fetch, _upload
 from scavislam_tpu_torch.models.map_store import (
     PointTable,
     PoseTable,

@@ -76,11 +76,6 @@ DENSE_SUBS = (2, 2, 1)
 # the multistream step's density: levels 0-1 at every 4th pixel (the
 # reference's CPU tracker density); the coarse level stays full
 DENSE_SUBS_BATCHED = (4, 4, 1)
-# dense-tracking samplers accepted for API parity; both run the exact f32
-# bilinear sampler ("matmul" names the twin's bf16 matrix-unit sampler,
-# which the port does not reproduce)
-DENSE_SAMPLERS = ("qpack", "matmul")
-
 FAST_THRESHOLD = 10.0 / 255.0
 # uint8 -> [0, 1] as a multiply by the f32 reciprocal: the twin's compiled
 # step computes `u8 / 255.0` that way (XLA rewrites the division), which
@@ -321,11 +316,7 @@ def frontend_step(
     stereo_opts: tuple = (4, 4, 4),  # (iters, levels, nr_plane) of BP/CSBP
     *,
     dense_subs: tuple = DENSE_SUBS,  # dense-cloud per-level subsampling
-    dense_sample: str = "qpack",  # one of DENSE_SAMPLERS (both exact)
 ) -> FrontendStepOut:
-    if dense_sample not in DENSE_SAMPLERS:
-        raise ValueError(f"dense_sample {dense_sample!r} not in "
-                         f"{DENSE_SAMPLERS}")
     dev = frames_stacked.device
     f32 = torch.float32
     # -- 1. unpack + preprocess (uint8 frames normalized on device)
@@ -474,6 +465,7 @@ def frontend_step(
         torch.zeros(3, dtype=f32, device=dev), cam_params, levels, dxs, dys,
         dense_subs=dense_subs)
 
+    # the layout PackedStep reads
     packed = torch.cat([
         R_cw.reshape(-1), t_cw,                      # 0:9, 9:12
         R_cak_new.reshape(-1), t_cak_new,            # 12:21, 21:24
@@ -497,6 +489,32 @@ def frontend_step(
         pyr, dxs, dys, disp,
         clouds, valids, intens, cloud_J,
     )
+
+
+class PackedStep(NamedTuple):
+    """A downloaded ``FrontendStepOut.packed`` on the host, by field: numpy
+    views of the vector, the statistics as numpy scalars and the gate as
+    booleans."""
+
+    R_cw: np.ndarray  # (3, 3)
+    t_cw: np.ndarray
+    R_cak: np.ndarray  # T_cur_from_actkey
+    t_cak: np.ndarray
+    n_matched: np.float32
+    n_gated: np.float32
+    t_norm: np.float32
+    mean_track_len: np.float32
+    quad_counts: np.ndarray  # (4,)
+    gate: np.ndarray  # (C,) bool
+    obs: np.ndarray  # (C, 3)
+
+    @classmethod
+    def read(cls, pk: np.ndarray) -> "PackedStep":
+        C = (len(pk) - 34) // 5
+        return cls(pk[0:9].reshape(3, 3), pk[9:12],
+                   pk[12:21].reshape(3, 3), pk[21:24], *pk[24:28],
+                   pk[30:34], pk[34:34 + C] > 0.5,
+                   pk[34 + 2 * C:34 + 5 * C].reshape(C, 3))
 
 
 def _cloud_state(pyr, disp, R_cak, t_cak, cam_params, levels, dxs=None,

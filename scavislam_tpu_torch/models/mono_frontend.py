@@ -17,11 +17,15 @@ Differences from the stereo frontend, by the sensor:
 - scale is gauged by the spawn-time inverse-depth prior: evaluate with the
   Sim3-aligned ATE (pipeline.slam_system.ate_rmse_aligned).
 
+The host shell it shares with the stereo frontend (the keyframe map and
+its bookkeeping, the step's device inputs, the frames in flight) is
+``models.host_frontend.HostFrontend``, its base class.
+
 Per frame the host uploads the image (unless the frame carries it on the
 device: ``left_dev``, or ``stacked_dev`` whose plane 0 is taken) and the
-candidate ids when they change, and downloads one packed vector through a
-:class:`~scavislam_tpu_torch.models.frontend.Fetch` (a pinned copy behind a
-CUDA event). On a card the step is one CUDA graph replay
+candidate ids when they change (a pinned copy), and downloads one packed
+vector through a ``host_frontend.Fetch`` (a pinned copy behind a CUDA
+event). On a card the step is one CUDA graph replay
 (``step_graph.MonoStepGraph``, captured at the first frame stepped), on
 the CPU the eager ``mono_step``. Pipelined, the policy runs
 ``pipeline_depth`` frames behind the dispatch; the device pose chain
@@ -40,8 +44,9 @@ step) holding ``mono.step`` (the step's call); ``mono.consume`` holding
 read); ``mono.window_ba`` (the window's assembly and dispatch) and
 ``mono.adopt`` (a landed solve's write-back); ``MonoSystem`` adds
 ``mono.place`` and ``mono.relocalize``. Each call that steps a frame, and
-each frame the flush consumes, appends one entry (see ``timing_log``
-below).
+each frame the flush consumes, appends one entry (see
+``HostFrontend.timing_log``); spans a caller records after a call
+(``MonoSystem``'s window BA and place recognition) fold into the next.
 """
 
 from __future__ import annotations
@@ -51,27 +56,26 @@ from collections import deque
 import numpy as np
 import torch
 
-from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
-from scavislam_tpu_torch.core.lie import SE3, PoseRT
+from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.ba_solver import BAProblem, solve_ba
-from scavislam_tpu_torch.models.frontend import Fetch, _project_so3
-from scavislam_tpu_torch.models.frontend_step import (
-    level_sections,
-    normalize_frames,
+from scavislam_tpu_torch.models.frontend_step import normalize_frames
+from scavislam_tpu_torch.models.host_frontend import (
+    Fetch,
+    HostFrontend,
+    InFlight,
+    _project_so3,
 )
-from scavislam_tpu_torch.models.map_store import (
-    MAX_KEYFRAMES,
-    MAX_POINTS,
-    PointTable,
-    PoseTable,
-    scatter_psi,
+from scavislam_tpu_torch.models.map_store import MAX_POINTS, scatter_psi
+from scavislam_tpu_torch.models.mono_step import (
+    PackedMonoStep,
+    mono_step,
+    spawn_points_mono,
 )
-from scavislam_tpu_torch.models.mono_step import mono_step, spawn_points_mono
 from scavislam_tpu_torch.models.step_graph import MonoStepGraph
 from scavislam_tpu_torch.ops.image import build_pyramid
 from scavislam_tpu_torch.utils.config import Config
-from scavislam_tpu_torch.utils.perfmon import Spans, span_s, spanned
+from scavislam_tpu_torch.utils.perfmon import spanned
 
 CAND_CAP = 512
 NEW_PER_LEVEL = (192, 64, 32)
@@ -86,23 +90,20 @@ def _solve_mono_window(cam_params, prob: BAProblem, iters: int):
                     disp_info=torch.zeros_like(prob.obs_weight))
 
 
-class MonoFrontend:
+class MonoFrontend(HostFrontend):
     """Feature-based monocular VO with filter-initialized inverse depth.
 
     The keyframe policy mirrors the stereo rules (stereo_frontend.cpp:
     512-528) with the translation threshold in prior-scale units."""
 
+    SPAN_PREFIX = "mono"
+
     def __init__(self, cam: StereoCamera, cfg: Config = None, *,
                  prior_idepth: float = 0.25, conv_q_info: float = 25.0,
                  prior_weight: float = 0.05, device=None):
-        self.cfg = cfg or Config()
-        self.device = resolve_device(device)
-        self.cam = cam
-        self.levels = self.cfg.use_n_levels_in_frontent
-        self.cams = [cam.scale_level(l) for l in range(self.levels)]
+        super().__init__(cam, cfg, device)
         self._cam_params = tuple(
             (c.focal, c.pp[0], c.pp[1]) for c in self.cams)
-        self._cam_statics = tuple(c.size for c in self.cams)
         self.prior_idepth = float(prior_idepth)
         self.conv_q_info = float(conv_q_info)
         self.prior_weight = float(prior_weight)
@@ -112,63 +113,26 @@ class MonoFrontend:
                                     device=dev)
         self._pw_dev = torch.full((), self.prior_weight, dtype=torch.float32,
                                   device=dev)
-        self._actkey_cache = None
         # the frame step, as in StereoFrontend: CUDA graph replays on a
         # card (captured at the first frame stepped), eager on the CPU
         self._step = (MonoStepGraph() if self.device.type == "cuda"
                       else mono_step)
-        # when set to a list, each call that steps a frame (and each frame
-        # flush_pipeline consumes) appends one (frame_id, dispatch_s,
-        # fetch_wait_s, consume_s, folded) tuple: the seconds of its
-        # mono.dispatch, its mono.fetch_wait and the rest of its
-        # mono.consume, and what `spans` recorded since the previous entry
-        # (perfmon.Spans.fold). Spans a caller records after the call
-        # (MonoSystem's window BA and place recognition) fold into the
-        # next entry
-        self.timing_log = None
-        self.spans = Spans(self)
-
-        self.poses = PoseTable.empty(device=dev)
-        self.points = PointTable.empty(device=dev)
         self.Lam = torch.zeros((MAX_POINTS, 3, 3), dtype=torch.float32,
                                device=dev)
-
-        self.next_kf = 0
-        self.next_point = 0
-        self.kf_point_ids: dict[int, np.ndarray] = {}
         # per-keyframe observations for the window BA: point ids and the
         # level-0 uv each was (re-)observed at when the keyframe was made
         # (tracked survivors) or spawned (anchor observations)
         self.kf_obs: dict[int, tuple] = {}
-        self.covis: dict[int, dict[int, int]] = {}
-        self.pose_np: dict[int, tuple] = {}
-        self.actkey_id = -1
-        self.frame_id = -1
         self.trajectory: list = []
 
-        self._meta_anchor = np.full(MAX_POINTS, -1, np.int64)
-        self._meta_level = np.zeros(MAX_POINTS, np.int64)
-
-        self._R_cw = np.eye(3, dtype=np.float32)
-        self._t_cw = np.zeros(3, np.float32)
-        self._dev_R_cw = None
-        self._dev_t_cw = None
-        self._cand_np = None
-        self._cand_dev = None
-        self._tracked_ids = np.zeros(0, np.int64)
         self._tracked_uv = np.zeros((0, 2), np.float32)
         self.last_lam_qq = np.zeros(0, np.float32)
         self.last_pyr = None
         self.last_kf_img = None
 
-        # pipelined mode: frames in flight, each a list [frame_id,
-        # cand_ids, MonoStepOut, Fetch, kf_epoch, correction or None]
-        self.pipeline_depth = 2
-        self._pending = deque()
         self._pending_ba = None  # in-flight async window solve
         self._map_gen = 0  # bumped on re-gauge; stale solves discarded
         self.last_ba_chi2 = None
-        self._kf_epoch = 0
         # frozen marginalized relative-pose constraints (mono DWO):
         # (a, b) a<b -> (R_b_from_a, t_b_from_a, Lambda 6x6), made when a
         # covis edge leaves the inner window, dropped when both ends
@@ -176,73 +140,22 @@ class MonoFrontend:
         self.edge_constraints: dict = {}
 
     # -- helpers ----------------------------------------------------------- #
-    def _world_pose(self) -> PoseRT:
-        return PoseRT(self._R_cw.astype(np.float64).copy(),
-                      self._t_cw.astype(np.float64).copy())
-
-    def _actkey_dev(self):
-        key = max(self.actkey_id, 0)
-        cached = self._actkey_cache
-        if cached is None or cached[0] != key:
-            cached = (key, torch.full((), key, dtype=torch.int64,
-                                      device=self.device))
-            self._actkey_cache = cached
-        return cached[1]
-
-    def _cand_device(self, cand_ids):
-        if self._cand_np is None or not np.array_equal(self._cand_np,
-                                                       cand_ids):
-            self._cand_np = cand_ids.copy()
-            self.spans.sync("cand.upload")  # from pageable memory
-            self._cand_dev = torch.as_tensor(cand_ids.astype(np.int32),
-                                             device=self.device)
-        return self._cand_dev
-
     def _collect_candidates(self) -> np.ndarray:
-        lists = []
-        if self.actkey_id in self.kf_point_ids:
-            lists.append(self.kf_point_ids[self.actkey_id])
-        for nbr in sorted(self.covis.get(self.actkey_id, {}),
-                          key=lambda k: -self.covis[self.actkey_id][k]):
-            lists.append(self.kf_point_ids.get(nbr, np.zeros(0, np.int64)))
+        """actkey's points + covis neighbours' points, deduped and sorted,
+        packed into the per-level sections."""
+        lists = self._covis_point_lists()
         ids = (np.unique(np.concatenate(lists)) if lists
                else np.zeros(0, np.int64))
-        out = np.full((CAND_CAP,), -1, np.int64)
-        if len(ids):
-            lv = self._meta_level[np.clip(ids, 0, MAX_POINTS - 1)]
-            off = 0
-            for l, cap in enumerate(level_sections(self.levels, CAND_CAP)):
-                sel = ids[lv == l][:cap]
-                out[off:off + len(sel)] = sel
-                off += cap
-        return out
-
-    def _pose_dev(self):
-        if self._dev_R_cw is None:
-            self.spans.sync("pose.upload", 2)  # R and t, pageable
-        R = (self._dev_R_cw if self._dev_R_cw is not None
-             else torch.as_tensor(self._R_cw, dtype=torch.float32,
-                                  device=self.device))
-        t = (self._dev_t_cw if self._dev_t_cw is not None
-             else torch.as_tensor(self._t_cw, dtype=torch.float32,
-                                  device=self.device))
-        return R, t
+        return self._sectioned(ids, CAND_CAP)
 
     def _image_dev(self, frame):
         """The frame's left plane on this frontend's device: `left_dev`
         (prefetched by the IO layer), plane 0 of `stacked_dev`, or `left`
-        uploaded. A prefetched plane is ordered after its upload event and
-        recorded on the current stream for the allocator."""
-        for key in ("left_dev", "stacked_dev"):
-            if key in frame:
-                x = frame[key]
-                if x.is_cuda:
-                    stream = torch.cuda.current_stream(x.device)
-                    if frame.get("upload_event") is not None:
-                        stream.wait_event(frame["upload_event"])
-                    x.record_stream(stream)
-                x = x.to(self.device)
-                return x if key == "left_dev" else x[0]
+        uploaded."""
+        if "left_dev" in frame:
+            return self._prefetched(frame, "left_dev")
+        if "stacked_dev" in frame:
+            return self._prefetched(frame, "stacked_dev")[0]
         left = frame["left"]
         if isinstance(left, torch.Tensor) and left.device == self.device:
             return left
@@ -270,18 +183,10 @@ class MonoFrontend:
 
     def process_first_frame(self, frame: dict):
         self.frame_id = frame.get("frame_id", 0)
-        kf_id = self._new_keyframe_id()
         T_kw = PoseRT.from_any(frame["T_cw_init"]) if "T_cw_init" in frame \
             else PoseRT(np.eye(3), np.zeros(3))
-        R_kw = np.asarray(T_kw.R, np.float32)
-        t_kw = np.asarray(T_kw.t, np.float32)
-        self.spans.sync("keyframe.pose", 3)  # R, t and the valid flag
-        self.poses = self.poses.set(kf_id, SE3(torch.as_tensor(R_kw),
-                                               torch.as_tensor(t_kw)))
-        self.pose_np[kf_id] = (R_kw.copy(), t_kw.copy())
-        self.actkey_id = kf_id
-        self._R_cw, self._t_cw = R_kw.copy(), t_kw.copy()
-        self.covis[kf_id] = {}
+        kf_id = self._first_keyframe((np.array(T_kw.R, np.float32),
+                                      np.array(T_kw.t, np.float32)))
 
         # the pyramid of the (f32) left image, for spawning only
         left = frame["left"] if "left" in frame else self._image_dev(frame)
@@ -302,8 +207,7 @@ class MonoFrontend:
             self.frame_id = frame.get("frame_id", self.frame_id + 1)
             cand_ids = self._collect_candidates()
             out = self._run_step(frame, cand_ids)
-        res = self._fetch_consume(self.frame_id, cand_ids, out,
-                                  Fetch(out.packed), self._kf_epoch)
+        res = self._consume(self._in_flight(cand_ids, out))
         self._log_entry(self.frame_id)
         return res
 
@@ -320,93 +224,55 @@ class MonoFrontend:
             self.frame_id = frame.get("frame_id", self.frame_id + 1)
             cand_ids = self._collect_candidates()
             out = self._run_step(frame, cand_ids)
-            self._pending.append([self.frame_id, cand_ids, out,
-                                  Fetch(out.packed), self._kf_epoch, None])
-        if len(self._pending) <= max(1, self.pipeline_depth):
-            self._log_entry(self.frame_id)
-            return None
-        fid, cand_ids, out, fut, epoch, corr = self._pending.popleft()
-        ok, dropped = self._fetch_consume(fid, cand_ids, out, fut, epoch,
-                                          corr)
-        self._log_entry(fid)
-        return ok, dropped, fid
+            self._pending.append(self._in_flight(cand_ids, out))
+        return self._consume_behind(max(1, self.pipeline_depth))
 
     def flush_pipeline(self):
         """Consume all in-flight frames (end of sequence), stopping at the
         first failure. Returns [(success, dropped, frame_id)]."""
         results = []
-        while self._pending:
-            fid, cand_ids, out, fut, epoch, corr = self._pending.popleft()
-            ok, dropped = self._fetch_consume(fid, cand_ids, out, fut, epoch,
-                                              corr)
-            self._log_entry(fid)
-            results.append((ok, dropped, fid))
-            if not ok:
-                self._pending.clear()
-                break
+        for f, ok, dropped in self._drain():
+            self._log_entry(f.frame_id)
+            results.append((ok, dropped, f.frame_id))
         return results
 
-    def _log_entry(self, frame_id):
-        """Append the frame's timing_log entry (when there is a log)."""
-        if self.timing_log is None:
-            return
-        f = self.spans.fold()
-        wait = span_s(f, "mono.fetch_wait")
-        self.timing_log.append((frame_id, span_s(f, "mono.dispatch"), wait,
-                                span_s(f, "mono.consume") - wait, f))
-
     @spanned("mono.consume")
-    def _fetch_consume(self, frame_id, cand_ids, out, fut, epoch, corr=None):
+    def _consume(self, f: InFlight):
         """The frame's packed download (waiting where it has not landed),
         then the policy on it."""
-        if fut.done():
-            pk = fut.result()
-        else:
-            self.spans.sync("frame.fetch")
-            with self.spans.span("mono.fetch_wait"):
-                pk = fut.result()
-        return self._consume(frame_id, cand_ids, out, pk, epoch, corr)
+        pk = PackedMonoStep.read(self._landed(f.fetch))
+        # dispatched before an async window-BA adoption: the chain's
+        # right-multiplicative actkey correction
+        # (T_cw' = T_cw_packet @ T_akw_old^-1 T_akw_new), projected onto SO(3)
+        R_cw, t_cw = f.world_pose(pk.R_cw, pk.t_cw)
+        if f.corr is not None:
+            R_cw = _project_so3(R_cw)
+        self.last_lam_qq = pk.lam_qq
 
-    def _consume(self, frame_id, cand_ids, out, pk, epoch, corr=None):
-        C = CAND_CAP
-        R_cw = pk[0:9].reshape(3, 3)
-        t_cw = pk[9:12]
-        if corr is not None:
-            # dispatched before an async window-BA adoption: the chain's
-            # right-multiplicative actkey correction
-            # (T_cw' = T_cw_packet @ T_akw_old^-1 T_akw_new)
-            R_c, t_c = corr
-            t_cw = R_cw @ t_c + t_cw
-            R_cw = _project_so3(R_cw @ R_c)
-        n_matched, n_gated, n_conv, t_norm, mean_track_len = pk[24:29]
-        quad_counts = pk[30:34]
-        gate = pk[34:34 + C] > 0.5
-        obs_uv = pk[34 + 2 * C: 34 + 4 * C].reshape(C, 2)
-        self.last_lam_qq = pk[34 + 4 * C: 34 + 5 * C]
-
-        if int(n_gated) < MIN_TRACK_OBS or not np.isfinite(t_cw).all():
-            if epoch != self._kf_epoch:
+        if int(pk.n_gated) < MIN_TRACK_OBS or not np.isfinite(t_cw).all():
+            if f.epoch != self._kf_epoch:
                 # dispatched before the latest keyframe spawn: a transient
                 # skip, not a tracking loss
                 return True, False
             return False, False
         self._R_cw = R_cw.astype(np.float32)
         self._t_cw = t_cw.astype(np.float32)
-        self._tracked_ids = cand_ids[gate]
-        self._tracked_uv = obs_uv[gate]
-        self.trajectory.append((frame_id, self._world_pose()))
+        self._tracked_ids = f.cand_ids[pk.gate]
+        self._tracked_uv = pk.obs_uv[pk.gate]
+        self.trajectory.append((f.frame_id, self._world_pose()))
 
         # keyframe decisions (switch and spawn) only on current-epoch
         # frames: stale-epoch statistics re-trigger the conditions the last
         # decision fixed
         dropped = False
-        switched = (epoch == self._kf_epoch
-                    and self._maybe_switch_keyframe(float(t_norm)))
-        if (not switched and epoch == self._kf_epoch
-                and self._shall_drop_keyframe(
-                    quad_counts, float(t_norm), float(mean_track_len))):
+        current = f.epoch == self._kf_epoch
+        switched = current and self._maybe_switch_keyframe(float(pk.t_norm))
+        if (not switched and current
+                and self._shall_drop_keyframe(pk.quad_counts,
+                                              float(pk.t_norm),
+                                              float(pk.mean_track_len))):
             with self.spans.span("mono.spawn"):
-                self._add_new_keyframe(out)
+                self._add_new_keyframe(f.out)
             dropped = True
         return True, dropped
 
@@ -414,25 +280,10 @@ class MonoFrontend:
         """Re-target the active keyframe when a covisible keyframe is closer
         than 0.5 * parallax_thr and shares > 100 tracked features
         (shallWeSwitchKeyframe, stereo_frontend.cpp:445-510)."""
-        ids = self._tracked_ids
-        if len(ids) == 0 or self.actkey_id < 0:
-            return False
-        anch = self._meta_anchor[np.clip(ids, 0, MAX_POINTS - 1)]
-        best = None
-        for nbr in self.covis.get(self.actkey_id, {}):
-            shared = int((anch == nbr).sum())
-            if shared <= 100 or nbr not in self.pose_np:
-                continue
-            Rn, tn = self.pose_np[nbr]
-            R_cn = self._R_cw @ Rn.T
-            d = float(np.linalg.norm(self._t_cw - R_cn @ tn))
-            if d < 0.5 * self.cfg.ui.parallax_thr and d < t_norm:
-                if best is None or d < best[1]:
-                    best = (nbr, d)
+        best = self._nearer_keyframe(t_norm)
         if best is None:
             return False
         self.actkey_id = best[0]
-        self._actkey_cache = None
         self._cand_np = None
         # in-flight frames' statistics refer to the OLD actkey
         self._kf_epoch += 1
@@ -463,51 +314,17 @@ class MonoFrontend:
         # updates the frame step made
         snap = (self.points, self.Lam, self._R_cw.copy(), self._t_cw.copy(),
                 self.actkey_id)
-        self._R_cw, self._t_cw = Rk.copy(), tk.copy()
-        self._dev_R_cw = None
-        self._dev_t_cw = None
-        self.actkey_id = best
-        self._actkey_cache = None
-        self._cand_np = None
-        self._pending.clear()
+        self._restart_chain(Rk.copy(), tk.copy(), best)
         ok, _ = self.process_frame(frame)
         if not ok:
-            (self.points, self.Lam, self._R_cw, self._t_cw,
-             self.actkey_id) = snap
-            self._dev_R_cw = None
-            self._dev_t_cw = None
-            self._actkey_cache = None
-            self._cand_np = None
+            self.points, self.Lam = snap[:2]
+            self._restart_chain(*snap[2:])
         return ok
 
-    # -- keyframe policy ----------------------------------------------------- #
-    def _shall_drop_keyframe(self, quad_counts, t_norm, mean_track_len):
-        cfg = self.cfg
-        featureless = int(
-            (np.asarray(quad_counts) < cfg.ui.min_num_points).sum())
-        if featureless >= cfg.frontend.new_keyframe_featureless_corners_thr:
-            return True
-        if t_norm > cfg.ui.parallax_thr:
-            return True
-        if mean_track_len > cfg.frontend.new_keyframe_pixel_thr:
-            return True
-        return False
-
-    def _new_keyframe_id(self) -> int:
-        kf = self.next_kf
-        assert kf < MAX_KEYFRAMES, "keyframe table full"
-        self.next_kf += 1
-        return kf
-
+    # -- keyframe creation ------------------------------------------------ #
     def _spawn(self, pyr, kf_id: int, tracked_uv):
         caps = NEW_PER_LEVEL[: self.levels]
-        total = sum(caps)
-        if self.next_point + total > MAX_POINTS:
-            self.next_point = 0
-        starts = []
-        for cap in caps:
-            starts.append(self.next_point)
-            self.next_point += cap
+        starts = self._allocate_points(caps, kf_id)
 
         t_uv0 = np.zeros((TRACKED_CAP, 2), np.float32)
         t_val = np.zeros(TRACKED_CAP, bool)
@@ -524,10 +341,7 @@ class MonoFrontend:
             self.points, self.Lam, starts, kf_id, self.prior_idepth,
             self._cam_params, self._cam_statics, self.levels, tuple(caps),
             float(self.cfg.frontend.newpoint_clearance))
-        fut = Fetch(payloads)
-        if not fut.done():
-            self.spans.sync("spawn.fetch")
-        pk = fut.result()
+        pk = self._fetched(Fetch(payloads), "spawn.fetch")
         all_ids, all_uv = [], []
         off = 0
         for l, cap in enumerate(caps):
@@ -537,8 +351,6 @@ class MonoFrontend:
             ok = pk[off: off + cap] > 0.5
             off += cap
             ids = np.arange(starts[l], starts[l] + cap, dtype=np.int64)
-            self._meta_anchor[ids] = kf_id
-            self._meta_level[ids] = l
             self._meta_anchor[ids[~ok]] = -1
             all_ids.append(ids[ok])
             all_uv.append(uv0[ok])
@@ -564,20 +376,8 @@ class MonoFrontend:
         # frames behind the caller's frame)
         self.last_kf_img = out.pyr[0]
         kf_id = self._new_keyframe_id()
-        self.spans.sync("keyframe.pose", 3)  # R, t and the valid flag
-        self.poses = self.poses.set(kf_id, SE3(torch.as_tensor(self._R_cw),
-                                               torch.as_tensor(self._t_cw)))
-        self.pose_np[kf_id] = (self._R_cw.copy(), self._t_cw.copy())
-
-        anch = self._meta_anchor[np.clip(self._tracked_ids, 0,
-                                         MAX_POINTS - 1)]
-        strengths = {}
-        for a, c in zip(*np.unique(anch, return_counts=True)):
-            if int(a) >= 0 and int(c) >= self.cfg.frontend.covis_thr:
-                strengths[int(a)] = int(c)
-        self.covis[kf_id] = dict(strengths)
-        for a, s in strengths.items():
-            self.covis.setdefault(a, {})[kf_id] = s
+        self._set_keyframe_pose(kf_id, (self._R_cw.copy(), self._t_cw.copy()))
+        self._link_keyframe(kf_id, self._tracked_ids)
 
         # tracked survivors are OBSERVATIONS of this keyframe (the window
         # BA links the new pose to older anchors through them)
@@ -635,8 +435,8 @@ class MonoFrontend:
         meta["gen"] = self._map_gen
         if sync:
             with self.spans.span("mono.adopt"):
-                self._writeback_window(meta, self._window_result(
-                    Fetch(packed)))
+                self._writeback_window(meta, self._fetched(
+                    Fetch(packed), "window.fetch"))
             return self.last_ba_chi2
         meta["fut"] = Fetch(packed)
         self._pending_ba = meta
@@ -654,18 +454,11 @@ class MonoFrontend:
             return False
         self._pending_ba = None
         with self.spans.span("mono.adopt"):
-            packed = self._window_result(pb["fut"])
+            packed = self._fetched(pb["fut"], "window.fetch")
             if pb["gen"] != self._map_gen:
                 return False  # stale across a loop closure / relocalization
             self._writeback_window(pb, packed)
         return True
-
-    def _window_result(self, fut):
-        """A window solve's packed download, waiting where it has not
-        landed."""
-        if not fut.done():
-            self.spans.sync("window.fetch")
-        return fut.result()
 
     def invalidate_pending_ba(self):
         """The map gauge changed (loop-closure re-gauge, relocalization):
@@ -897,15 +690,9 @@ class MonoFrontend:
             # frames in flight carry packets from the PRE-adoption chain:
             # attach the right-multiplicative actkey correction
             # T_akw_old^-1 @ T_akw_new (composed if stacked)
-            R_c = (Rk_old.T @ Rk_new).astype(np.float32)
-            t_c = (Rk_old.T @ (tk_new - tk_old)).astype(np.float32)
-            for e in self._pending:
-                if e[5] is None:
-                    e[5] = (R_c, t_c)
-                else:
-                    R0, t0 = e[5]
-                    e[5] = ((R0 @ R_c).astype(np.float32),
-                            (R0 @ t_c + t0).astype(np.float32))
+            self._correct_in_flight(
+                (Rk_old.T @ Rk_new).astype(np.float32),
+                (Rk_old.T @ (tk_new - tk_old)).astype(np.float32))
         for k in kf_ids:
             i = slot[k]
             self.pose_np[k] = (R_np[i].astype(np.float32),

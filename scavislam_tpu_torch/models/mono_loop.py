@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from scavislam_tpu_torch.core.lie import Sim3, umeyama_sim3
-from scavislam_tpu_torch.models.frontend import Fetch
+from scavislam_tpu_torch.models.host_frontend import Fetch
 from scavislam_tpu_torch.models.map_store import MAX_POINTS
 from scavislam_tpu_torch.models.placerec import (
     NUM_HYPOTHESES,

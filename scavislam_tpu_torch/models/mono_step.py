@@ -216,6 +216,7 @@ def mono_step(
     mean_track_len = torch.sum(
         torch.where(own, track_len, torch.zeros_like(track_len))) / n_own
 
+    # the layout PackedMonoStep reads
     packed = torch.cat([
         R_cw.reshape(-1), t_cw,                      # 0:9, 9:12
         R_cak.reshape(-1), t_cak,                    # 12:21, 21:24
@@ -232,6 +233,32 @@ def mono_step(
         lam_qq_new,                                  # +C (post-update info)
     ])
     return MonoStepOut(packed, R_cw, t_cw, gate, obs_uv, points, new_lam, pyr)
+
+
+class PackedMonoStep(NamedTuple):
+    """A downloaded ``MonoStepOut.packed`` on the host, by field: numpy
+    views of the vector, the statistics as numpy scalars and the gate as
+    booleans."""
+
+    R_cw: np.ndarray  # (3, 3)
+    t_cw: np.ndarray
+    n_matched: np.float32
+    n_gated: np.float32
+    n_conv: np.float32  # gated candidates that were depth-converged
+    t_norm: np.float32  # |t_cur_from_actkey|, prior-scale units
+    mean_track_len: np.float32
+    quad_counts: np.ndarray  # (4,)
+    gate: np.ndarray  # (C,) bool
+    obs_uv: np.ndarray  # (C, 2)
+    lam_qq: np.ndarray  # (C,) inverse-depth information after the update
+
+    @classmethod
+    def read(cls, pk: np.ndarray) -> "PackedMonoStep":
+        C = (len(pk) - 34) // 5
+        return cls(pk[0:9].reshape(3, 3), pk[9:12], *pk[24:29], pk[30:34],
+                   pk[34:34 + C] > 0.5,
+                   pk[34 + 2 * C:34 + 4 * C].reshape(C, 2),
+                   pk[34 + 4 * C:34 + 5 * C])
 
 
 def spawn_points_mono(

@@ -37,7 +37,7 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.backend import DetectedLoop
-from scavislam_tpu_torch.models.frontend import Fetch, _upload_f32
+from scavislam_tpu_torch.models.host_frontend import Fetch, _upload_f32
 from scavislam_tpu_torch.models.step_graph import GraphedFn
 from scavislam_tpu_torch.ops.descriptors import (BOW_KEYPOINTS, DESC_DIM,
                                                  bow_describe,

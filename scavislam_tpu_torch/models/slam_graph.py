@@ -40,7 +40,7 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.core.lie import PoseRT
 from scavislam_tpu_torch.models.ba_solver import BAProblem, solve_ba
-from scavislam_tpu_torch.models.frontend import Fetch
+from scavislam_tpu_torch.models.host_frontend import Fetch
 from scavislam_tpu_torch.models.step_graph import GraphedFn
 
 INNER = 1

@@ -14,7 +14,7 @@ and devices of the tensor arguments and the values of every other
 argument (for the stereo step: the stack's 2 uint8 planes, or 3 f32
 planes with an external disparity; the table, cloud and candidate
 capacities; the camera floats, levels, disparities, stereo method and
-options, the reprojection bound, the dense subsampling and sampler; for
+options, the reprojection bound, the dense subsampling; for
 the mono step: the uint8 plane, the table and candidate capacities, the
 camera floats, levels, the reprojection bound and the ZMSSD threshold).
 

@@ -277,7 +277,7 @@ class OverDp:
 
 def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
                                num_disp=64, max_reproj=2.0, dense_subs=None,
-                               dense_sample="matmul", stereo=None):
+                               stereo=None):
     """The full per-frame frontend step over a batch of B streams: the
     twin's ``vstep``, one program over the stream axis.
 
@@ -328,8 +328,7 @@ def build_multistream_frontend(mesh, cam_params, cam_statics, levels=3,
             return frontend_step(
                 frames, clouds, intens, valids, Js, R, t, ak, poses, points,
                 cand, cam_params, cam_statics, levels, num_disp, use_ext,
-                max_reproj, method, dense_subs=subs,
-                dense_sample=dense_sample)
+                max_reproj, method, dense_subs=subs)
 
         with lanes():
             return torch.func.vmap(one)(frames, clouds, intens, valids, Js,

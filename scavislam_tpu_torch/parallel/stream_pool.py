@@ -45,32 +45,17 @@ from scavislam_tpu_torch import resolve_device
 from scavislam_tpu_torch.core.camera import StereoCamera
 from scavislam_tpu_torch.models.frontend import (
     CAND_CAP,
-    Fetch,
     StereoFrontend,
     _to_u8,
-    _upload,
 )
 from scavislam_tpu_torch.models.frontend_step import DENSE_SUBS_BATCHED
+from scavislam_tpu_torch.models.host_frontend import Fetch, InFlight, _upload
 from scavislam_tpu_torch.parallel.multistream import (
     build_multistream_frontend,
     stack_streams,
 )
 from scavislam_tpu_torch.utils.config import Config
 from scavislam_tpu_torch.utils.perfmon import Spans, span_s
-
-
-class _Row:
-    """One stream's row of a landed (B, K) fetch, with a future's surface
-    (StereoFrontend._consume reads ``result()``)."""
-
-    def __init__(self, row):
-        self._row = row
-
-    def done(self) -> bool:
-        return True
-
-    def result(self):
-        return self._row
 
 
 class _StreamView:
@@ -291,10 +276,10 @@ class StreamPool:
             if not self.alive[s]:
                 results.append((False, False, fids[s]))
                 continue
-            ok, dropped = fe._consume(
-                cand_rows[s], _StreamView(out, s), fut=_Row(pk[s]),
-                epoch=epochs[s],
-            )
+            # the stream's row of the landed fetch (a host Fetch, landed)
+            ok, dropped = fe._consume(InFlight(
+                fids[s], cand_rows[s], _StreamView(out, s),
+                Fetch(torch.from_numpy(pk[s])), epochs[s], None))
             if self.timing_log is not None:
                 stream_s[s] = self.spans.last_s
             if ok:
@@ -310,10 +295,7 @@ class StreamPool:
         while self._pending:
             results.append(self._consume_oldest()[0])
         for fe in self.fes:
-            if fe._pending_spawn is not None:
-                rec, pkt_args = fe._pending_spawn
-                fe._pending_spawn = None
-                fe._finalize_keyframe(rec, pkt_args)
+            fe._finalize_pending_spawn()
         return results
 
     def take_ready_packets(self):

@@ -598,7 +598,7 @@ def test_prefetched_frames_equal_files_on_card(cuda_device, tmp_path):
     got = []
     for f in g:
         assert f["stacked_dev"].is_cuda and f["upload_event"] is not None
-        got.append(fe._prefetched(f))
+        got.append(fe._prefetched(f, "stacked_dev"))
     g.close()
     torch.cuda.synchronize()
     assert len(got) == len(pairs)

@@ -235,7 +235,7 @@ class TestMultistreamFrontend:
         t = torch.zeros((B, 3))
         step = build_multistream_frontend(cpu_mesh(2, dp=2), cam_params,
                                           cam_statics, levels=levels,
-                                          num_disp=16, dense_sample="qpack")
+                                          num_disp=16)
         out = step(frames, clouds, intens, valids, Js, R, t, [0] * B, poses,
                    points, cand)
         for s in range(B):

@@ -275,8 +275,9 @@ def test_syncs_are_counted_by_site():
                                     "spawn.upload": 3}
     fe.spans.syncs.clear()
     assert s.process_frame(fs[1])
-    # the first step: its pose chain and its candidates go up
-    assert dict(fe.spans.syncs) == {"pose.upload": 2, "cand.upload": 1}
+    # the first step: its pose chain and its candidates go up as pinned
+    # copies, which do not synchronize
+    assert dict(fe.spans.syncs) == {}
     fe.spans.syncs.clear()
     k = 2
     while fe.next_kf == 1:
@@ -289,5 +290,6 @@ def test_syncs_are_counted_by_site():
         "adopt.upload": 4}
     fe.spans.syncs.clear()
     assert s.process_frame(fs[k])
-    # after the write-back: the chain and the new candidates go up again
-    assert dict(fe.spans.syncs) == {"pose.upload": 2, "cand.upload": 1}
+    # after the write-back: the chain and the new candidates go up again,
+    # as pinned copies
+    assert dict(fe.spans.syncs) == {}

@@ -181,8 +181,7 @@ def _run(tb, stereo):
     cam_params, cam_statics = _cams()
     step = build_multistream_frontend(
         None, cam_params, cam_statics, levels=3, num_disp=64,
-        max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED, dense_sample="qpack",
-        stereo=stereo)
+        max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED, stereo=stereo)
     return step(tb["frames"], *tb["dense"], tb["R"], tb["t"], tb["ak"],
                 tb["poses"], tb["points"], tb["cand"])
 
@@ -277,7 +276,7 @@ def test_kernel_route_over_a_dp_mesh(batch, monkeypatch):
     step = build_multistream_frontend(
         make_mesh(2, dp=2, devices=[CPU] * 2), cam_params, cam_statics,
         levels=3, num_disp=64, max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED,
-        dense_sample="qpack", stereo="kernel")
+        stereo="kernel")
     monkeypatch.setattr(multistream, "block_matching_disparity_bm_batched",
                         counted)
     out = step(tb["frames"], *tb["dense"], tb["R"], tb["t"], tb["ak"],

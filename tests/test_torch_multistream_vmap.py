@@ -76,8 +76,7 @@ def _step(route):
     cam_params, cam_statics = _cams()
     return build_multistream_frontend(
         None, cam_params, cam_statics, levels=3, num_disp=64,
-        max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED, dense_sample="qpack",
-        stereo=route)
+        max_reproj=2.0, dense_subs=DENSE_SUBS_BATCHED, stereo=route)
 
 
 def _args(tb, order):

@@ -29,6 +29,7 @@ from scavislam_tpu.utils.config import Config as JConfig
 from scavislam_tpu_torch import interop
 from scavislam_tpu_torch.models.backend import Backend
 from scavislam_tpu_torch.models.frontend import StereoFrontend as TFrontend
+from scavislam_tpu_torch.models.host_frontend import InFlight
 from scavislam_tpu_torch.models.placerec import (PlaceRecognizer,
                                                  random_vocabulary)
 from scavislam_tpu_torch.models.slam_graph import SlamGraph
@@ -267,7 +268,7 @@ def _shared_frontends(sync_runs):
     tf._dev_t_cw = interop.tensor(src._dev_t_cw)
     cand = tf._collect_candidates()
     jf._pending.append([99, cand, None, None, None, None, 0])
-    tf._pending.append([99, cand, None, None, None, None, 0])
+    tf._pending.append(InFlight(99, cand, None, None, 0, None))
     return jf, tf
 
 
@@ -293,9 +294,10 @@ def test_apply_neighborhood_from_shared_state(sync_runs):
                                atol=1e-6)
     np.testing.assert_allclose(tf._dev_t_cw.numpy(), np.asarray(jf._dev_t_cw),
                                atol=1e-6)
-    for i in (4, 5):
-        np.testing.assert_allclose(tf._pending[0][i], jf._pending[0][i],
-                                   atol=1e-6)
+    # the twin's entry holds the correction's R and t at 4 and 5
+    for i in (0, 1):
+        np.testing.assert_allclose(tf._pending[0].corr[i],
+                                   jf._pending[0][4 + i], atol=1e-6)
     np.testing.assert_array_equal(tf._collect_candidates(),
                                   jf._collect_candidates())
     tf._apply_nb_pending(block=True)
